@@ -1,0 +1,216 @@
+"""Benchmark harness: SPE10 SWIPDG assemble + solve to a true 1e-6 residual.
+
+Counterpart of the ``preconditioner="stencil2"`` path of
+``dune_hdd_tpu/bench_harness.py``.  The SPE10 model-1 problem (100 x 20
+permeability cells on [0,5] x [0,1], channel-modulated diffusion factor,
+three box forces, all-Dirichlet boundary) is discretized with P1 SWIPDG on
+the ALU-bisected 100 x 20 cube grid.  Per call, from the permeability field
+as a device tensor:
+
+1. assemble the operator directly into stencil planes and the rhs;
+2. scale it symmetrically by its diagonal;
+3. build the weighted two-level deflation preconditioner (macro lattice =
+   the 100 x 20 permeability grid, dense BCR / LU coarse inverse);
+4. solve with float32 PCG inside float64 iterative refinement.
+
+The host geometry plan, the static coefficient and the kernel build are
+set-up, outside the timed call.  The solver settings are the reference's
+defaults for up to 6 bisections; larger grids need the mid-level chain,
+which is not ported yet.
+"""
+from __future__ import annotations
+
+import statistics
+import time
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .functions.base import ConstantFunction, IndicatorFunction, ScaledFunction, SumFunction
+from .functions.spe10 import MODEL1_NX, MODEL1_NZ, _synthetic_model1_field
+from .grid.boundaryinfo import make_boundary_info
+from .grid.structured import alu_cube_grid
+from .grid.structured_order import structured_cell_order
+from .kernels.plane_spmv import plane_spmv
+from .la.stencil import (
+    StencilBlockEll,
+    stencil_deflation_preconditioner,
+    stencil_refined_solve,
+)
+from .la.stencil_assembly import (
+    assemble_structured_spe10,
+    assembly_tensors,
+    build_structured_assembly,
+    geometric_soa_maps,
+    precompute_coefficient,
+    scale_planes,
+    structured_rhs,
+)
+from .testcases._spe10_channel import CHANNEL
+
+__all__ = ["build_spe10_bench", "run_spe10_bench", "Spe10Bench", "BenchSolution"]
+
+_FORCES = [
+    ((0.95, 0.30), (1.10, 0.45), 2000.0),
+    ((3.00, 0.75), (3.15, 0.90), -1000.0),
+    ((4.25, 0.25), (4.40, 0.40), -1000.0),
+]
+_MACRO = (MODEL1_NX, MODEL1_NZ)  # deflation aggregates = permeability cells
+_NEWTON_SCHULZ = 2
+_INNER_ITERS = 150    # PCG iterations per refinement sweep
+_INNER_RTOL = 1e-1    # sweep exit: short sweeps, the f64 residual re-anchors
+_OUTER_MAX = 120      # refinement sweeps
+_UNROLL = 2           # PCG iterations between convergence checks
+
+
+def _select_mid_level(KY: int, KX: int, macro) -> Optional[object]:
+    """Middle aggregation level(s) the reference inserts between the fine
+    and the ``macro`` lattice once the aggregation factor reaches 8: None,
+    one (mx, my), or a finest-first list.  None up to 6 bisections."""
+    if macro is None or KX % macro[0] or KY % macro[1]:
+        return None
+    fx, fy = KX // macro[0], KY // macro[1]
+    if min(fx, fy) < 8:
+        return None
+    mids = []
+    mx, my = 4 * macro[0], 4 * macro[1]
+    while mx < KX and my < KY and KX % mx == 0 and KY % my == 0:
+        mids.append((mx, my))
+        if KX // mx <= 4:
+            break
+        mx, my = 4 * mx, 4 * my
+    if not mids:
+        return None
+    mids.reverse()  # finest mid first
+    return mids[0] if len(mids) == 1 else mids
+
+
+class BenchSolution(NamedTuple):
+    u: torch.Tensor      # float64 solution, flat cell-major original order
+    residual: float      # true relative residual of the scaled system
+    iterations: int      # total inner PCG iterations
+    sweeps: int          # outer refinement sweeps
+
+
+class Spe10Bench(NamedTuple):
+    fn: Callable         # permeability field -> BenchSolution (the timed call)
+    field: torch.Tensor  # [MODEL1_NX, MODEL1_NZ] float32 example field
+    num_dofs: int
+    assemble: Callable   # field -> (S, B, s): assembly + scaling part of fn
+    solve: Callable      # (S, B, s) -> BenchSolution: the rest of fn
+    to_soa: torch.Tensor  # flat original -> SoA [nd, 8, KY, KX] index map
+
+
+def _highest_precision() -> None:
+    """Full float32 products everywhere: TF32 assembles an asymmetric
+    operator (~1e-3 relative), which breaks CG."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cpu",
+                      spmv: Callable = plane_spmv) -> Spe10Bench:
+    """Set up the bench at ``bisections`` (even) on ``device``.  ``spmv`` is
+    the SpMV the operator applies (the CUDA kernel's plain version can be
+    substituted for comparison)."""
+    if bisections % 2 or bisections < 2:
+        raise ValueError(f"bench sizes need an even number >= 2 of bisections, "
+                         f"got {bisections}")
+    # structured lattice of the bisected 100 x 20 criss grid (checked below)
+    KY, KX = 10 << (bisections // 2), 50 << (bisections // 2)
+    if _select_mid_level(KY, KX, _MACRO) is not None:
+        raise NotImplementedError("mid-level chain: later PR")
+    _highest_precision()
+    device = torch.device(device)
+    grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
+    binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
+    order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
+    if order.lattice != (KY, KX):
+        raise AssertionError(f"structured lattice {order.lattice}, expected {(KY, KX)}")
+    channel = IndicatorFunction(CHANNEL)
+    diffusion_factor = SumFunction([ConstantFunction(1.0), ScaledFunction(channel, -0.9)])
+    force = IndicatorFunction(_FORCES)
+    splan = build_structured_assembly(grid, order, binfo)
+    # the channel geometry is static: evaluate it once on the host
+    tensors = assembly_tensors(splan, precompute_coefficient(splan, diffusion_factor),
+                               device)
+    to_soa, from_soa = geometric_soa_maps(order, splan)
+    # the macro grid tiles the lattice, so the cell-constant permeability in
+    # SoA order is a pure broadcast cf[k, iy, ix] = field[ix // fx, iy // fy];
+    # verify that layout against the centroid binning
+    fy, fx = KY // MODEL1_NZ, KX // MODEL1_NX
+    ij_cell = np.clip(
+        (grid.cell_centroids / np.array([5.0, 1.0]) * np.array([MODEL1_NX, MODEL1_NZ]))
+        .astype(np.int64), 0, np.array([MODEL1_NX - 1, MODEL1_NZ - 1]))
+    ij_soa = ij_cell[np.asarray(order.inv)].reshape(8, KY, KX, 2)
+    iyg, ixg = np.meshgrid(np.arange(KY), np.arange(KX), indexing="ij")
+    if not ((ij_soa[..., 0] == (ixg // fx)[None]).all()
+            and (ij_soa[..., 1] == (iyg // fy)[None]).all()):
+        raise AssertionError("permeability broadcast does not match the centroid binning")
+    from_soa_t = torch.as_tensor(from_soa, dtype=torch.long, device=device)
+    to_soa_t = torch.as_tensor(to_soa, dtype=torch.long, device=device)
+
+    def broadcast_field(field32: torch.Tensor) -> torch.Tensor:
+        cf2d = field32.t()[:, None, :, None].expand(MODEL1_NZ, fy, MODEL1_NX, fx)
+        return cf2d.reshape(KY, KX)[None].expand(8, KY, KX)
+
+    def assemble(field: torch.Tensor):
+        S = assemble_structured_spe10(tensors, broadcast_field(field.to(torch.float32)))
+        S = StencilBlockEll(S.planes, S.plan, spmv)
+        return scale_planes(S, structured_rhs(tensors, force))
+
+    def solve(S: StencilBlockEll, B: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+        # weighted deflation space Z_w = diag(1/s) Z: the scaled system has
+        # near-kernel D^{1/2} 1, not constants
+        M = stencil_deflation_preconditioner(S, _MACRO, weight=1.0 / s,
+                                             newton_schulz=_NEWTON_SCHULZ)
+        X, res, iters, sweeps = stencil_refined_solve(
+            S, B, M, tol=tol, inner_iters=_INNER_ITERS, inner_rtol=_INNER_RTOL,
+            outer_max=_OUTER_MAX, unroll=_UNROLL)
+        u = (X * s.to(X.dtype)).reshape(-1)[from_soa_t]
+        return BenchSolution(u, res, iters, sweeps)
+
+    def fn(field: torch.Tensor) -> BenchSolution:
+        return solve(*assemble(field))
+
+    field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
+    return Spe10Bench(fn, field, grid.num_cells * 3, assemble, solve, to_soa_t)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
+                    device="cpu") -> dict:
+    """Median wall time of ``repeats`` timed calls (after one warm-up call),
+    each on the field perturbed by 1 + 1e-6 (i+1).  Besides the numbers, the
+    dict carries the bench object, the last field and the last solution."""
+    bench = build_spe10_bench(bisections=bisections, tol=tol, device=device)
+    dev = bench.field.device
+    sol = bench.fn(bench.field)  # warm-up
+    _sync(dev)
+    times = []
+    for i in range(repeats):
+        f = bench.field * (1.0 + 1e-6 * (i + 1))
+        _sync(dev)  # the input is ready outside the timed region
+        t0 = time.perf_counter()
+        sol = bench.fn(f)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    dt = float(statistics.median(times))
+    return {
+        "num_dofs": bench.num_dofs,
+        "seconds": dt,
+        "mdof_per_s": bench.num_dofs / dt / 1e6,
+        "residual": sol.residual,
+        "inner_iterations": sol.iterations,
+        "outer_sweeps": sol.sweeps,
+        "all_times": times,
+        "bench": bench,
+        "field": f if repeats else bench.field,
+        "u": sol.u,
+    }
