@@ -9,14 +9,16 @@ as a device tensor:
 
 1. assemble the operator directly into stencil planes and the rhs;
 2. scale it symmetrically by its diagonal;
-3. build the weighted two-level deflation preconditioner (macro lattice =
-   the 100 x 20 permeability grid, dense BCR / LU coarse inverse);
-4. solve with float32 PCG inside float64 iterative refinement.
+3. build the weighted deflation preconditioner: two-level onto the macro
+   lattice (the 100 x 20 permeability grid, dense BCR / LU coarse inverse)
+   up to 6 bisections, three-level (a middle lattice of 4 x the macro's
+   with a Chebyshev-accelerated two-level inverse) from 8 bisections on;
+4. solve with float32 PCG inside float64 iterative refinement, applying the
+   exactly symmetrized operator from 8 bisections on.
 
 The host geometry plan, the static coefficient and the kernel build are
 set-up, outside the timed call.  The solver settings are the reference's
-defaults for up to 6 bisections; larger grids need the mid-level chain,
-which is not ported yet.
+size-dependent defaults (``_solver_settings``).
 """
 from __future__ import annotations
 
@@ -57,11 +59,32 @@ _FORCES = [
     ((4.25, 0.25), (4.40, 0.40), -1000.0),
 ]
 _MACRO = (MODEL1_NX, MODEL1_NZ)  # deflation aggregates = permeability cells
-_NEWTON_SCHULZ = 2
-_INNER_ITERS = 150    # PCG iterations per refinement sweep
-_INNER_RTOL = 1e-1    # sweep exit: short sweeps, the f64 residual re-anchors
-_OUTER_MAX = 120      # refinement sweeps
-_UNROLL = 2           # PCG iterations between convergence checks
+
+
+class SolverSettings(NamedTuple):
+    inner_iters: int     # PCG iterations per refinement sweep
+    inner_rtol: float    # sweep exit: short sweeps, the f64 residual re-anchors
+    outer_max: int       # refinement sweeps
+    unroll: int          # PCG iterations between convergence checks
+    newton_schulz: int   # polish passes of the dense coarse inverse
+    mid_cheb: int        # Chebyshev degree of the middle-level inverse
+    symmetric: bool      # apply the exactly symmetrized operator
+
+
+def _solver_settings(bisections: int, lattice) -> SolverSettings:
+    """The reference bench's size-dependent solver defaults: longer sweeps
+    from 8 bisections on, a sweep exit tolerance that grows with size (the
+    float32 true progress per sweep shrinks with size), and the symmetric
+    operator once the lattice has >= 128000 cells per subclass (160 x 800,
+    8 bisections)."""
+    KY, KX = lattice
+    inner_rtol = 7e-1 if bisections >= 10 else 3e-1 if bisections >= 8 else 1e-1
+    return SolverSettings(
+        inner_iters=300 if bisections >= 8 else 150,
+        inner_rtol=inner_rtol,
+        outer_max=500 if inner_rtol >= 3e-1 else 120,
+        unroll=2, newton_schulz=2, mid_cheb=2,
+        symmetric=KY * KX >= 128000)
 
 
 def _select_mid_level(KY: int, KX: int, macro) -> Optional[object]:
@@ -99,7 +122,11 @@ class Spe10Bench(NamedTuple):
     num_dofs: int
     assemble: Callable   # field -> (S, B, s): assembly + scaling part of fn
     solve: Callable      # (S, B, s) -> BenchSolution: the rest of fn
+    precondition: Callable  # (S, s) -> (S, M): the operator solve applies, its M
     to_soa: torch.Tensor  # flat original -> SoA [nd, 8, KY, KX] index map
+    settings: SolverSettings
+    mid_shape: object    # middle lattice(s) of the preconditioner, or None
+    offsets: tuple       # 8 x 3 flat cell offsets of the structured order
 
 
 def _highest_precision() -> None:
@@ -111,17 +138,18 @@ def _highest_precision() -> None:
 
 
 def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cpu",
-                      spmv: Callable = plane_spmv) -> Spe10Bench:
+                      spmv: Callable = plane_spmv, macro=_MACRO) -> Spe10Bench:
     """Set up the bench at ``bisections`` (even) on ``device``.  ``spmv`` is
     the SpMV the operator applies (the CUDA kernel's plain version can be
-    substituted for comparison)."""
+    substituted for comparison); ``macro`` is the exact coarse lattice of
+    the preconditioner (the permeability grid by default)."""
     if bisections % 2 or bisections < 2:
         raise ValueError(f"bench sizes need an even number >= 2 of bisections, "
                          f"got {bisections}")
     # structured lattice of the bisected 100 x 20 criss grid (checked below)
     KY, KX = 10 << (bisections // 2), 50 << (bisections // 2)
-    if _select_mid_level(KY, KX, _MACRO) is not None:
-        raise NotImplementedError("mid-level chain: later PR")
+    mid_shape = _select_mid_level(KY, KX, macro)
+    settings = _solver_settings(bisections, (KY, KX))
     _highest_precision()
     device = torch.device(device)
     grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
@@ -161,14 +189,21 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cpu",
         S = StencilBlockEll(S.planes, S.plan, spmv)
         return scale_planes(S, structured_rhs(tensors, force))
 
-    def solve(S: StencilBlockEll, B: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+    def precondition(S: StencilBlockEll, s: torch.Tensor):
+        if settings.symmetric:
+            S = S.symmetrized()
         # weighted deflation space Z_w = diag(1/s) Z: the scaled system has
         # near-kernel D^{1/2} 1, not constants
-        M = stencil_deflation_preconditioner(S, _MACRO, weight=1.0 / s,
-                                             newton_schulz=_NEWTON_SCHULZ)
+        return S, stencil_deflation_preconditioner(
+            S, macro, weight=1.0 / s, newton_schulz=settings.newton_schulz,
+            mid_shape=mid_shape, mid_cheb=settings.mid_cheb)
+
+    def solve(S: StencilBlockEll, B: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+        S, M = precondition(S, s)
         X, res, iters, sweeps = stencil_refined_solve(
-            S, B, M, tol=tol, inner_iters=_INNER_ITERS, inner_rtol=_INNER_RTOL,
-            outer_max=_OUTER_MAX, unroll=_UNROLL)
+            S, B, M, tol=tol, inner_iters=settings.inner_iters,
+            inner_rtol=settings.inner_rtol, outer_max=settings.outer_max,
+            unroll=settings.unroll)
         u = (X * s.to(X.dtype)).reshape(-1)[from_soa_t]
         return BenchSolution(u, res, iters, sweeps)
 
@@ -176,7 +211,8 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cpu",
         return solve(*assemble(field))
 
     field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
-    return Spe10Bench(fn, field, grid.num_cells * 3, assemble, solve, to_soa_t)
+    return Spe10Bench(fn, field, grid.num_cells * 3, assemble, solve, precondition, to_soa_t,
+                      settings, mid_shape, order.offsets)
 
 
 def _sync(device: torch.device) -> None:
@@ -187,12 +223,18 @@ def _sync(device: torch.device) -> None:
 def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
                     device="cpu") -> dict:
     """Median wall time of ``repeats`` timed calls (after one warm-up call),
-    each on the field perturbed by 1 + 1e-6 (i+1).  Besides the numbers, the
-    dict carries the bench object, the last field and the last solution."""
+    each on the field perturbed by 1 + 1e-6 (i+1).  Besides the numbers
+    (set-up and warm-up seconds included), the dict carries the bench
+    object, the last field and the last solution."""
+    t0 = time.perf_counter()
     bench = build_spe10_bench(bisections=bisections, tol=tol, device=device)
     dev = bench.field.device
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sol = bench.fn(bench.field)  # warm-up
     _sync(dev)
+    warmup_s = time.perf_counter() - t0
     times = []
     for i in range(repeats):
         f = bench.field * (1.0 + 1e-6 * (i + 1))
@@ -204,6 +246,8 @@ def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
     dt = float(statistics.median(times))
     return {
         "num_dofs": bench.num_dofs,
+        "setup_seconds": setup_s,
+        "warmup_seconds": warmup_s,
         "seconds": dt,
         "mdof_per_s": bench.num_dofs / dt / 1e6,
         "residual": sol.residual,

@@ -10,10 +10,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .la.block_ell import StructuredBlockEll
 from .la.stencil import StencilBlockEll
 from .la.stencil_assembly import StructuredAssemblyPlan, _FaceFamily
 
-__all__ = ["stencil_from_numpy", "assembly_plan_from_numpy"]
+__all__ = ["stencil_from_numpy", "structured_from_numpy", "assembly_plan_from_numpy"]
 
 
 def stencil_from_numpy(planes: np.ndarray, plan, device) -> StencilBlockEll:
@@ -23,6 +24,16 @@ def stencil_from_numpy(planes: np.ndarray, plan, device) -> StencilBlockEll:
     if planes.ndim != 6 or planes.shape[:4] != (4, 3, 3, 8):
         raise ValueError(f"planes must be [4, 3, 3, 8, KY, KX], got {planes.shape}")
     return StencilBlockEll(torch.tensor(planes, device=device), plan)  # a copy
+
+
+def structured_from_numpy(neighbors: np.ndarray, blocks: np.ndarray, offsets,
+                          device) -> StructuredBlockEll:
+    """The port's StructuredBlockEll from a neighbour table [nc, 4], blocks
+    [nc, 4, nd, nd] and 8 x 3 offsets, on ``device`` in the blocks' dtype."""
+    blocks = np.ascontiguousarray(blocks)
+    if blocks.ndim != 4 or blocks.shape[1] != 4 or blocks.shape[2] != blocks.shape[3]:
+        raise ValueError(f"blocks must be [nc, 4, nd, nd], got {blocks.shape}")
+    return StructuredBlockEll(np.array(neighbors), torch.tensor(blocks, device=device), offsets)
 
 
 def assembly_plan_from_numpy(splan) -> StructuredAssemblyPlan:

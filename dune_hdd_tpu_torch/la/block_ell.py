@@ -1,15 +1,58 @@
-"""Block-ELL helpers: the cell-neighbour table (host numpy) and the batched
-closed-form 3x3 inverse (torch).
+"""Block-ELL pieces: the operator in the structured cell numbering, the
+cell-neighbour table (host numpy) and the batched closed-form 3x3 inverse.
 
-Counterpart of ``block_ell_neighbors`` and ``inv3x3`` in
-``dune_hdd_tpu/la/block_ell.py``.
+Counterpart of ``StructuredBlockEll``, ``block_ell_neighbors`` and
+``inv3x3`` in ``dune_hdd_tpu/la/block_ell.py`` (``from_block_ell`` waits
+for ``BlockEllMatrix``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["block_ell_neighbors", "inv3x3"]
+from ..kernels.structured_spmv import structured_neighbor_fields, structured_spmv
+
+__all__ = ["StructuredBlockEll", "block_ell_neighbors", "inv3x3"]
+
+
+class StructuredBlockEll:
+    """Block-ELL operator in the bandwidth-ordered structured numbering:
+    cells subclass-major, slots geometric (0 = self, 1 = hypotenuse,
+    2 = vertical face, 3 = horizontal face).  blocks [nc, 4, nd, nd];
+    neighbors [nc, 4] host table kept for set-up code; offsets: 8 x 3 flat
+    cell offsets of each (subclass, slot) neighbour, read modulo nc
+    (wrapped reads meet zero blocks at the domain boundary).
+
+    The SpMV reads the blocks as SoA planes [4, nd, nd, nc], made once here
+    (no copy when ``blocks`` is already a permuted view of such planes)."""
+
+    def __init__(self, neighbors, blocks: torch.Tensor, offsets):
+        self.neighbors = neighbors
+        self.blocks = blocks
+        self.offsets = tuple(tuple(int(o) for o in row) for row in offsets)
+        self.planes = blocks.permute(1, 2, 3, 0).contiguous()
+
+    @property
+    def num_cells(self) -> int:
+        return self.blocks.shape[0]
+
+    @property
+    def nd(self) -> int:
+        return self.blocks.shape[-1]
+
+    def with_blocks(self, blocks: torch.Tensor) -> "StructuredBlockEll":
+        return StructuredBlockEll(self.neighbors, blocks, self.offsets)
+
+    def neighbor_fields(self, xc: torch.Tensor) -> torch.Tensor:
+        """[nc, 4, nd]: x at self and at each geometric-slot neighbour."""
+        return structured_neighbor_fields(xc, self.offsets)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """x [nc * nd] cell-major -> A x, through ``structured_spmv``."""
+        return structured_spmv(self.planes, x.contiguous(), self.offsets)
+
+    def diagonal_blocks(self) -> torch.Tensor:
+        return self.blocks[:, 0]
 
 
 def block_ell_neighbors(grid) -> np.ndarray:

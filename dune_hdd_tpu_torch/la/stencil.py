@@ -1,8 +1,10 @@
-"""SoA stencil form of the structured block operator, its two-level deflation
-preconditioner and the mixed-precision refined PCG.
+"""SoA stencil form of the structured block operator, its symmetric form,
+its two- and multi-level deflation preconditioners and the mixed-precision
+refined PCG.
 
-Counterpart of ``dune_hdd_tpu/la/stencil.py`` for the bench's path at up to
-6 bisections.  The operator lives as planes W[slot, i, j, subclass, KY, KX]
+Counterpart of ``dune_hdd_tpu/la/stencil.py`` for the bench's path (the
+factored BCR coarse solve for more than 4096 aggregates is not ported).  The
+operator lives as planes W[slot, i, j, subclass, KY, KX]
 (slot 0 = self) and vectors as X[nd, 8, KY, KX]; for a subclass-k cell at
 lattice position (iy, ix) its geometric slot-s neighbour is the
 subclass-``k_src`` cell at (iy+dy, ix+dx).  Reads that wrap around a lattice
@@ -13,6 +15,7 @@ is plain torch on the planes' device.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,13 +63,24 @@ class StencilBlockEll:
     """planes [4, nd, nd, 8, KY, KX] (slot 0 = self); plan: 8x3 static
     (k_src, dy, dx) lattice shifts.  ``spmv(planes, X, plan)`` applies the
     operator; it is the hand-written kernel unless a caller substitutes its
-    plain version."""
+    plain version.
 
-    def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv):
+    A symmetric operator (:meth:`symmetrized`) keeps the assembled
+    ``planes``, from which the preconditioner is built, and applies
+    ``sym_planes``: the exactly symmetric operator that the reference's
+    half-storage ``_matvec_sym`` applies, materialized once."""
+
+    def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv,
+                 sym_planes: Optional[torch.Tensor] = None):
         self.planes = planes
         self.plan = tuple(tuple(tuple(int(v) for v in e) for e in row)
                           for row in plan)
         self.spmv = spmv
+        self.sym_planes = sym_planes
+
+    @property
+    def sym(self) -> bool:
+        return self.sym_planes is not None
 
     @property
     def nd(self) -> int:
@@ -76,11 +90,63 @@ class StencilBlockEll:
     def lattice(self) -> Tuple[int, int]:
         return self.planes.shape[-2], self.planes.shape[-1]
 
+    @property
+    def num_cells(self) -> int:
+        return 8 * self.planes.shape[-2] * self.planes.shape[-1]
+
+    @property
+    def matvec_planes(self) -> torch.Tensor:
+        """The planes that :meth:`matvec` applies."""
+        return self.planes if self.sym_planes is None else self.sym_planes
+
     def with_planes(self, planes: torch.Tensor) -> "StencilBlockEll":
         return StencilBlockEll(planes, self.plan, self.spmv)
 
     def astype(self, dtype: torch.dtype) -> "StencilBlockEll":
-        return self.with_planes(self.planes.to(dtype))
+        """The operator in ``dtype``; a symmetric one stays symmetric (the
+        symmetrization only moves values, so it commutes with the cast)."""
+        sym_planes = None if self.sym_planes is None else self.sym_planes.to(dtype)
+        return StencilBlockEll(self.planes.to(dtype), self.plan, self.spmv, sym_planes)
+
+    def _sym_forward_edges(self):
+        """12 forward (k, s) edges covering each undirected coupling once,
+        with the reverse (k_src, s') partner.  Raises if the plan is not
+        symmetric (it is for the NVB subclass structure)."""
+        pairs = {}
+        for k in range(8):
+            for s in range(3):
+                ks, dy, dx = self.plan[k][s]
+                rev = None
+                for sp in range(3):
+                    if self.plan[ks][sp] == (k, -dy, -dx):
+                        rev = sp
+                if rev is None:
+                    raise ValueError(f"stencil plan has no reverse edge for (k={k}, s={s})")
+                pairs[(k, s)] = (ks, rev)
+        return [(e, pairs[e]) for e in pairs if e < pairs[e]]
+
+    def symmetrized(self) -> "StencilBlockEll":
+        """The same operator with the exactly symmetric planes beside the
+        assembled ones: the self block's upper triangle used both ways, and
+        for each forward edge (k, s) ~ (ks, sp) with shift (dy, dx) the
+        reverse slot Wsym[sp+1, j, i, ks] = roll(W[s+1, i, j, k], (dy, dx)).
+        It differs from the assembled operator within assembly roundoff."""
+        W = self.planes
+        nd = self.nd
+        Ws = torch.empty_like(W)
+        for i in range(nd):
+            for j in range(nd):
+                Ws[0, i, j] = W[0, min(i, j), max(i, j)]
+        written = set()
+        for (k, s), (ks, sp) in self._sym_forward_edges():
+            _, dy, dx = self.plan[k][s]
+            Ws[s + 1, :, :, k] = W[s + 1, :, :, k]
+            Ws[sp + 1, :, :, ks] = torch.roll(W[s + 1, :, :, k], shifts=(dy, dx),
+                                              dims=(-2, -1)).transpose(0, 1)
+            written |= {(k, s), (ks, sp)}
+        if len(written) != 24:
+            raise ValueError("stencil plan's forward edges do not cover all 24 slots")
+        return StencilBlockEll(W, self.plan, self.spmv, Ws)
 
     def neighbor_fields(self, X: torch.Tensor):
         """[4][nd, 8, KY, KX] neighbour fields (self + 3 slots) of X."""
@@ -94,8 +160,9 @@ class StencilBlockEll:
         return fields
 
     def matvec(self, X: torch.Tensor) -> torch.Tensor:
-        """X [nd, 8, KY, KX] -> A X in the same layout."""
-        return self.spmv(self.planes, X.contiguous(), self.plan)
+        """X [nd, 8, KY, KX] -> A X in the same layout (the symmetric
+        operator when ``sym``)."""
+        return self.spmv(self.matvec_planes, X.contiguous(), self.plan)
 
     def diagonal_blocks(self) -> torch.Tensor:
         """[nd, nd, 8, KY, KX]."""
@@ -124,7 +191,39 @@ def jacobi_smoother(A: StencilBlockEll) -> Callable:
     return apply
 
 
-# -- two-level deflation in plane layout -------------------------------------
+# -- aggregation, coarse bands and coarse solves in plane layout -------------
+
+
+class _Aggregation2D(NamedTuple):
+    """Fine plane layout -> 2D coarse lattice field [my, mx] (rows = y)."""
+
+    aggsum: Callable      # [.., 8, KY, KX] -> [my, mx] (sums leading dims too)
+    broadcast: Callable   # [my, mx] -> [8, KY, KX]
+    mx: int
+    my: int
+    fy: int
+    fx: int
+
+
+def _aggregation2d(A: StencilBlockEll, macro_shape) -> Optional[_Aggregation2D]:
+    """Piecewise-constant aggregation onto the (mx, my) lattice, kept as a
+    2D [my, mx] field (the middle levels' layout)."""
+    KY, KX = A.lattice
+    mx, my = int(macro_shape[0]), int(macro_shape[1])
+    if KX % mx or KY % my:
+        return None
+    fy, fx = KY // my, KX // mx
+
+    def aggsum(R):
+        lead = R.shape[:-3]
+        nl = len(lead)
+        rc = R.reshape(lead + (8, my, fy, mx, fx))
+        return rc.sum(dim=tuple(range(nl)) + (nl, nl + 2, nl + 4))
+
+    def broadcast(yc):
+        return yc[None, :, None, :, None].expand(8, my, fy, mx, fx).reshape(8, my * fy, mx * fx)
+
+    return _Aggregation2D(aggsum, broadcast, mx, my, fy, fx)
 
 
 class _Aggregation(NamedTuple):
@@ -140,36 +239,75 @@ def _aggregation(A: StencilBlockEll, macro_shape) -> Optional[_Aggregation]:
     """Piecewise-constant aggregation onto the (mx, my) macro lattice, with
     aggregate id = ix_macro * my + iy_macro (x-major: the block cyclic
     reduction of the coarse solve depends on this order)."""
-    KY, KX = A.lattice
-    mx, my = int(macro_shape[0]), int(macro_shape[1])
-    if KX % mx or KY % my:
+    agg = _aggregation2d(A, macro_shape)
+    if agg is None:
         return None
-    fy, fx = KY // my, KX // mx
+    mx, my = agg.mx, agg.my
 
     def aggsum(R):
-        lead = R.shape[:-3]
-        nl = len(lead)
-        rc = R.reshape(lead + (8, my, fy, mx, fx))
-        dims = tuple(range(nl)) + (nl, nl + 2, nl + 4)
-        return rc.sum(dim=dims).t().reshape(-1)  # [my,mx] -> [mx,my] flat
+        return agg.aggsum(R).t().reshape(-1)  # [my,mx] -> [mx,my] flat
 
     def broadcast(yc):
-        g = yc.reshape(mx, my).t()  # [my, mx]
-        g = g[None, :, None, :, None].expand(8, my, fy, mx, fx)
-        return g.reshape(8, my * fy, mx * fx).contiguous()
+        return agg.broadcast(yc.reshape(mx, my).t())
 
-    return _Aggregation(aggsum, broadcast, mx, my, fy, fx)
+    return _Aggregation(aggsum, broadcast, mx, my, agg.fy, agg.fx)
 
 
-def _crossings(f: int, d: int, n: int, device) -> dict:
-    """{v: 0/1 float mask over lattice positions i} partitioning i by the
-    aggregate offset v = (i+d)//f - i//f that the shift d produces.  The set
-    of v is host arithmetic; the masks are built on the device."""
-    i_host = np.arange(n)
-    values = np.unique((i_host + d) // f - i_host // f)
-    i = torch.arange(n, device=device)
-    dA = torch.div(i + d, f, rounding_mode="floor") - torch.div(i, f, rounding_mode="floor")
-    return {int(v): (dA == int(v)).to(torch.float32) for v in values}
+def _crossing_masks(f: int, d: int, n: int) -> dict:
+    """{v: bool[n]} partition of lattice positions i by the aggregate offset
+    v = (i+d)//f - i//f that the shift d produces under f-fold aggregation.
+    Out-of-domain targets keep their arithmetic v: their stencil weights are
+    zero, so they contribute nothing."""
+    i = np.arange(n)
+    dA = (i + d) // f - i // f
+    return {int(v): (dA == v) for v in np.unique(dA)}
+
+
+@lru_cache(maxsize=None)
+def _mask_vectors(f: int, d: int, n: int, dtype: torch.dtype, device: torch.device) -> tuple:
+    """((v, 0/1 mask on the device), ...) of ``_crossing_masks``, copied to
+    the device once per lattice (a copy from the host waits for the device)."""
+    return tuple((v, torch.as_tensor(m, dtype=dtype).to(device))
+                 for v, m in _crossing_masks(f, d, n).items())
+
+
+def _masked_fields(field: torch.Tensor, f: Tuple[int, int], d: Tuple[int, int]):
+    """[(vy, vx), field * mask] for every aggregate offset the 2D shift d
+    produces under the (fy, fx) aggregation of field's last two axes."""
+    (fy, fx), (dy, dx) = f, d
+    n_y, n_x = field.shape[-2:]
+    out = []
+    for vy, wy in _mask_vectors(fy, dy, n_y, field.dtype, field.device):
+        for vx, wx in _mask_vectors(fx, dx, n_x, field.dtype, field.device):
+            out.append(((vy, vx), field * wy[:, None] * wx[None, :]))
+    return out
+
+
+def _ordered_sum(terms) -> torch.Tensor:
+    """Sum over the leading axis (or a list), one term after the other: the
+    order of the reference's XLA reductions.  The coarse operators are
+    ill-conditioned, so their rounding shows in the coarse solves."""
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+def _block_sums(field: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    """[..., my*fy, mx*fx] -> [..., my, mx]: sums over each fy x fx block in
+    row-major order (``_ordered_sum``)."""
+    ny, nx = field.shape[-2:]
+    t = field.reshape(field.shape[:-2] + (ny // fy, fy, nx // fx, fx))
+    return _ordered_sum([t[..., a, :, b] for a in range(fy) for b in range(fx)])
+
+
+def _accumulate(keys, contribs) -> dict:
+    """{key: sum of its contributions}, keys in first-seen order, each sum
+    taken in order (the reference's ``bands.get(key, 0) + contrib``)."""
+    out: dict = {}
+    for key, c in zip(keys, contribs):
+        out[key] = out[key] + c if key in out else c
+    return out
 
 
 def _coarse_bands(A: StencilBlockEll, agg: _Aggregation, P: torch.Tensor) -> dict:
@@ -178,42 +316,90 @@ def _coarse_bands(A: StencilBlockEll, agg: _Aggregation, P: torch.Tensor) -> dic
     contributes to at most 4 aggregate offsets (crossing 0/1 macro
     boundaries per axis).  ``P`` [4, 8, KY, KX]: the (weighted) pairing
     sums of the planes."""
-    KY, KX = A.lattice
     my, fy, mx, fx = agg.my, agg.fy, agg.mx, agg.fx
-
-    def ordered_sum(terms):
-        """Sum over the leading axis, one term after the other: the order of
-        the reference's XLA reductions.  E is ill-conditioned, so its
-        rounding shows in the coarse solves."""
-        acc = terms[0]
-        for t in terms[1:]:
-            acc = acc + t
-        return acc
 
     def x_major(v):  # [..., my, mx] -> [..., mx * my]
         return v.transpose(-1, -2).reshape(v.shape[:-2] + (mx * my,))
 
     # self slot: sum over (subclass, fy, fx) in row-major order
     self_terms = P[0].reshape(8, my, fy, mx, fx).permute(0, 2, 4, 1, 3).reshape(-1, my, mx)
-    bands: dict = {(0, 0): x_major(ordered_sum(self_terms))}
     # every (subclass, slot) family's masked pairing field, then all their
     # aggregate sums at once
+    keys, fields = [(0, 0)], []
+    for s in range(3):
+        for k in range(8):
+            for key, field in _masked_fields(P[s + 1, k], (fy, fx), A.plan[k][s][1:]):
+                keys.append(key)
+                fields.append(field)
+    vecs = x_major(_block_sums(torch.stack(fields), fy, fx))  # [n_fields, n_agg]
+    return _accumulate(keys, [x_major(_ordered_sum(self_terms))] + list(vecs))
+
+
+def _stencil_bands(A: StencilBlockEll, agg: _Aggregation2D,
+                   P: Optional[torch.Tensor] = None) -> dict:
+    """Galerkin coarse operator E = Z^T A Z of the piecewise-constant
+    aggregation as stencil bands {(vy, vx): [my, mx]} on the coarse lattice
+    (E[a, a+v] = band[v][a]), applied with rolls.  ``P`` [4, 8, KY, KX]: the
+    per-(slot, subclass) pairing sums (default 1^T W 1; the w-weighted sums
+    for a weighted deflation space Z_w)."""
+    fy, fx = agg.fy, agg.fx
+    if P is None:
+        P = A.planes.sum(dim=(1, 2))
     keys, fields = [], []
     for s in range(3):
         for k in range(8):
-            _, dy, dx = A.plan[k][s]
-            masks_y = _crossings(fy, dy, KY, P.device)
-            masks_x = _crossings(fx, dx, KX, P.device)
-            for vy, m_y in masks_y.items():
-                for vx, m_x in masks_x.items():
-                    keys.append((vy, vx))
-                    fields.append(P[s + 1, k] * (m_y[:, None] * m_x[None, :]).to(P.dtype))
-    stacked = torch.stack(fields).reshape(len(fields), my, fy, mx, fx)
-    stacked = stacked.permute(2, 4, 0, 1, 3).reshape(fy * fx, len(fields), my, mx)
-    vecs = x_major(ordered_sum(stacked))  # [n_fields, n_agg]
-    for key, vec in zip(keys, vecs):
-        bands[key] = bands[key] + vec if key in bands else vec
-    return bands
+            for key, field in _masked_fields(P[s + 1, k], (fy, fx), A.plan[k][s][1:]):
+                keys.append(key)
+                fields.append(field)
+    contribs = _block_sums(torch.stack(fields), fy, fx)  # [n_fields, my, mx]
+    self_band = _block_sums(_ordered_sum(P[0]), fy, fx)
+    return _accumulate([(0, 0)] + keys, [self_band] + list(contribs))
+
+
+def _band_matvec(bands: dict) -> Callable:
+    """y[a] = sum_v band[v][a] * x[a+v] via 2-axis rolls (band entries whose
+    target is out of domain are zero, so the wrap reads are harmless)."""
+    diag = bands[(0, 0)]
+    off = [(v, b) for v, b in bands.items() if v != (0, 0)]
+
+    def mv(x):
+        out = diag * x
+        for (vy, vx), b in off:
+            out = torch.addcmul(out, b, torch.roll(x, shifts=(-vy, -vx), dims=(0, 1)))
+        return out
+
+    return mv
+
+
+def _aggregate_bands(bands: dict, my: int, mx: int, gy: int, gx: int) -> dict:
+    """Re-aggregate stencil bands on an [my, mx] lattice by (gy, gx) -> bands
+    on the [my//gy, mx//gx] lattice (Galerkin: Z2^T E Z2)."""
+    keys, fields = [], []
+    for v, b in bands.items():
+        for key, field in _masked_fields(b, (gy, gx), v):
+            keys.append(key)
+            fields.append(field)
+    return _accumulate(keys, list(_block_sums(torch.stack(fields), gy, gx)))
+
+
+def _bands_to_dense(bands: dict, my: int, mx: int) -> torch.Tensor:
+    """Dense float32 [mx*my, mx*my] operator from stencil bands, in the
+    x-major flat ordering id = ax*my + ay of ``_coarse_inverse_bcr``.  Each
+    entry comes from one band (a key fixes the column offset), so one
+    scatter of all bands writes E; its indices cross from the host once."""
+    ay, ax = np.mgrid[0:my, 0:mx]
+    n = mx * my
+    src, dst = [], []
+    for i, (vy, vx) in enumerate(bands):
+        by, bx = ay + vy, ax + vx
+        valid = (by >= 0) & (by < my) & (bx >= 0) & (bx < mx)
+        src.append(i * n + np.flatnonzero(valid))  # in the stacked [n_bands, my, mx]
+        dst.append((ax * my + ay)[valid] * n + (bx * my + by)[valid])
+    vals = torch.stack(list(bands.values())).to(torch.float32).reshape(-1)
+    idx = torch.as_tensor(np.stack([np.concatenate(src), np.concatenate(dst)])).to(vals.device)
+    E = torch.zeros(n * n, dtype=torch.float32, device=vals.device)
+    E[idx[1]] = vals[idx[0]]
+    return E.reshape(n, n)
 
 
 def _coarse_E_banded(A: StencilBlockEll, agg: _Aggregation, P: torch.Tensor) -> torch.Tensor:
@@ -325,10 +511,124 @@ def _coarse_inverse(E: torch.Tensor, newton_schulz: int = 3) -> Callable:
     return solve
 
 
+_FACTORED_BCR = ("the factored BCR coarse solve for more than 4096 aggregates "
+                 "is not ported yet (ROADMAP queue 1, step 4b)")
+
+
+def _exact_inverse(E: torch.Tensor, mx: int, my: int, fx: int,
+                   newton_schulz: int) -> Callable:
+    """The exact coarse solve of a dense x-major E: BCR when the aggregation
+    factor in x is >= 2 (the coarse lattice is then block-tridiagonal), the
+    dense LU inverse when fx == 1 (|dx| = 2 shifts couple macro columns two
+    apart, which BCR would drop)."""
+    if fx >= 2 and mx * my > 4096:
+        raise NotImplementedError(_FACTORED_BCR)
+    if fx >= 2:
+        return _coarse_inverse_bcr(E, mx, my, newton_schulz)
+    return _coarse_inverse(E, newton_schulz)
+
+
+# -- Chebyshev acceleration and the middle levels ----------------------------
+
+
+def _power_lambda_max(matvec: Callable, precond: Callable, shape, dtype,
+                      device=None, iters: int = 12, seed: int = 0) -> torch.Tensor:
+    """Power iteration for lambda_max(precond o matvec) from the reference's
+    numpy start vector (set-up time)."""
+    rng = np.random.default_rng(seed)
+    v = torch.as_tensor(rng.standard_normal(shape), dtype=dtype).to(device)
+    v = v / torch.linalg.norm(v)
+    for _ in range(iters):
+        w = precond(matvec(v))
+        v = w / torch.linalg.norm(w)
+    w = precond(matvec(v))
+    return _dot(v, w) / _dot(v, v)
+
+
+def _cheb_apply(matvec: Callable, precond: Callable, degree: int, lmax,
+                ratio: float = 8.0, lmax_safety: float = 1.1) -> Callable:
+    """Chebyshev polynomial approximation of (matvec)^-1 preconditioned by
+    ``precond`` on the spectral interval [lmax/ratio, lmax] of
+    precond o matvec: a fixed symmetric positive operator, safe as (part of)
+    a PCG preconditioner.  The recurrence's scalars are taken once, on the
+    host, in lmax's precision (one sync at set-up)."""
+    f = np.float32 if lmax.dtype == torch.float32 else np.float64
+    lmax = f(lmax.item()) * f(lmax_safety)
+    lmin = lmax / f(ratio)
+    theta = f(0.5) * (lmax + lmin)
+    delta = f(0.5) * (lmax - lmin)
+    sigma = theta / delta
+    rho = f(1.0) / sigma
+    coeffs = []
+    for _ in range(degree - 1):
+        rho_new = f(1.0) / (f(2.0) * sigma - rho)
+        coeffs.append((float(rho_new * rho), float(f(2.0) * rho_new / delta)))
+        rho = rho_new
+    theta = float(theta)
+
+    def apply(R):
+        d = precond(R) / theta
+        x = d
+        for c_d, c_p in coeffs:
+            r = R - matvec(x)
+            d = torch.add(c_d * d, precond(r), alpha=c_p)
+            x = x + d
+        return x
+
+    return apply
+
+
+def _multilevel_inverse(bands1: dict, my1: int, mx1: int, shapes,
+                        newton_schulz: int = 2, cheb_degree: int = 2,
+                        cheb_ratio: float = 8.0, dtype=torch.float32) -> Callable:
+    """Approximate inverse of the stencil operator E1 (bands on an [my1, mx1]
+    lattice).  ``shapes``: successively coarser (mx, my) lattices below it;
+    the last one is solved exactly (dense BCR / LU), every intermediate one
+    by recursion.  Each level is the balanced two-level operator (Jacobi on
+    the band diagonal + the next level's inverse as its coarse solve),
+    Chebyshev-wrapped for ``cheb_degree`` >= 2, so the chain is a fixed SPD
+    operator and the enclosing PCG stays a valid PCG.  Raises ValueError
+    where a lattice does not tile the one above it."""
+    mx2, my2 = int(shapes[0][0]), int(shapes[0][1])
+    if mx1 % mx2 or my1 % my2:
+        raise ValueError(f"lattice {(mx2, my2)} does not tile {(mx1, my1)}")
+    gy, gx = my1 // my2, mx1 // mx2
+    bands2 = _aggregate_bands(bands1, my1, mx1, gy, gx)
+    if len(shapes) == 1:
+        E2 = _bands_to_dense(bands2, my2, mx2)
+        coarse2_flat = _exact_inverse(E2, mx2, my2, gx, newton_schulz)
+
+        def coarse2(r2d):  # [my2, mx2] -> [my2, mx2] via the x-major flat solve
+            return coarse2_flat(r2d.t().reshape(-1)).reshape(mx2, my2).t()
+    else:
+        coarse2 = _multilevel_inverse(bands2, my2, mx2, shapes[1:],
+                                      newton_schulz=newton_schulz, cheb_degree=cheb_degree,
+                                      cheb_ratio=cheb_ratio, dtype=dtype)
+    E1mv = _band_matvec(bands1)
+    d1 = bands1[(0, 0)]
+    Dinv = torch.where(d1 != 0, 1.0 / torch.where(d1 != 0, d1, torch.ones_like(d1)),
+                       torch.zeros_like(d1))
+
+    def Q2(r):  # aggregate sums, coarse solve, broadcast back
+        yc = coarse2(r.reshape(my2, gy, mx2, gx).sum(dim=(1, 3)))
+        return yc[:, None, :, None].expand(my2, gy, mx2, gx).reshape(my1, mx1)
+
+    def P1(r):
+        qr = Q2(r)
+        s = Dinv * (r - E1mv(qr))
+        return qr + s - Q2(E1mv(s))
+
+    if cheb_degree < 2:
+        return P1
+    lmax = _power_lambda_max(E1mv, P1, (my1, mx1), dtype, device=d1.device)
+    return _cheb_apply(E1mv, P1, cheb_degree, lmax, ratio=cheb_ratio)
+
+
 def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
                                      weight: torch.Tensor,
-                                     newton_schulz: int = 3) -> Callable:
-    """Balanced two-level preconditioner in the plane layout,
+                                     newton_schulz: int = 3, mid_shape=None,
+                                     mid_cheb: int = 2) -> Callable:
+    """Balanced two- or three-level preconditioner in the plane layout,
 
         M^-1 r = Q r + (I - Q A) S (I - A Q) r,   Q = Z_w E^-1 Z_w^T,
 
@@ -337,27 +637,38 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
     [nd, 8, KY, KX] is sqrt(diag A) = 1/s for a diagonally scaled system, so
     the coarse space contains the scaled near-kernel D^{1/2} 1.  The
     A-projections ride precomputed weighted AZ planes
-    (AZ[s,i] = sum_j W[s,i,j] w_j(neighbour)) instead of full matvecs."""
+    (AZ[s,i] = sum_j W[s,i,j] w_j(neighbour)) instead of full matvecs.
+
+    ``mid_shape=(mx1, my1)``, or a finest-first list of such shapes: the
+    three-level (multi-level) form for lattices where the ``macro_shape``
+    space alone degrades.  Z_w aggregates onto the first mid lattice; its
+    Galerkin operator E1 is a 9-point stencil of bands, inverted
+    approximately by ``_multilevel_inverse`` down to the exact
+    ``macro_shape`` level, Chebyshev-wrapped with degree ``mid_cheb``.
+    The preconditioner is built from ``A.planes``, the assembled operator,
+    also when A applies its symmetrized planes."""
     # weighted pairing sums P_w[s,k] = sum_ij w_i W[s,i,j] w_j(neighbour)
     wnbr = A.neighbor_fields(weight)  # [4][nd, 8, KY, KX]
     Pw = torch.stack([(weight[:, None] * A.planes[s] * wnbr[s][None, :]).sum(dim=(0, 1))
                       for s in range(4)])  # [4, 8, KY, KX]
-    agg = _aggregation(A, macro_shape)
-    if agg is None:
-        raise ValueError(f"macro lattice {tuple(macro_shape)} does not tile "
-                         f"the stencil lattice {A.lattice}")
-    smoother = jacobi_smoother(A)
-    if agg.fx >= 2 and agg.mx * agg.my > 4096:
-        raise NotImplementedError("factored BCR coarse solve: later PR")
-    E = _coarse_E_banded(A, agg, Pw)
-    if agg.fx >= 2:
-        # with >= 2 fine cells per aggregate in x the |dx| <= 2 shifts cross
-        # at most one macro boundary: the coarse lattice is block-tridiagonal
-        coarse = _coarse_inverse_bcr(E, agg.mx, agg.my, newton_schulz)
+    if mid_shape is not None:
+        mids = ([tuple(mid_shape)] if isinstance(mid_shape[0], (int, np.integer))
+                else [tuple(m) for m in mid_shape])
+        agg = _aggregation2d(A, mids[0])
     else:
-        # fx == 1: |dx| = 2 shifts couple macro columns two apart, which BCR
-        # would drop
-        coarse = _coarse_inverse(E, newton_schulz)
+        agg = _aggregation(A, macro_shape)
+    if agg is None:
+        raise ValueError(f"aggregation lattice {tuple(mid_shape or macro_shape)} does not "
+                         f"tile the stencil lattice {A.lattice}")
+    smoother = jacobi_smoother(A)
+    if mid_shape is not None:
+        coarse = _multilevel_inverse(_stencil_bands(A, agg, Pw), agg.my, agg.mx,
+                                     mids[1:] + [tuple(macro_shape)],
+                                     newton_schulz=newton_schulz, cheb_degree=mid_cheb,
+                                     dtype=A.planes.dtype)
+    else:
+        coarse = _exact_inverse(_coarse_E_banded(A, agg, Pw), agg.mx, agg.my, agg.fx,
+                                newton_schulz)
 
     AZ = torch.stack([(A.planes[s] * wnbr[s][None, :]).sum(dim=1)
                       for s in range(4)])  # [4, nd, 8, KY, KX]
@@ -414,34 +725,50 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
-                rtol: float = 1e-5, maxiter: int = 150, unroll: int = 4):
-    """PCG in SoA layout, in B's dtype; returns (X, iterations).  The rhs is
-    assumed pre-scaled to ||B|| = 1 so the recurrence residual is relative.
+                rtol: float = 1e-5, maxiter: int = 150, unroll: int = 4,
+                dot_dtype: Optional[torch.dtype] = None,
+                vec_dtype: Optional[torch.dtype] = None):
+    """PCG in SoA layout; returns (X, iterations).  The rhs is assumed
+    pre-scaled to ||B|| = 1 so the recurrence residual is relative.  The
+    matvec and the preconditioner run in B's dtype; ``vec_dtype`` (default
+    B's) is the dtype of the Krylov vectors X, R, Z, P and their updates, and
+    ``dot_dtype`` (default B's) that of the three inner products.
 
     Convergence is checked (one host sync) before every block of ``unroll``
     iterations, so the count is a multiple of ``unroll`` and may pass
     ``maxiter`` by less than ``unroll``."""
+    adt = B.dtype
+    vdt = vec_dtype or adt
+    dt = dot_dtype or adt
+
+    def apply_in_adt(op, V):
+        return op(V.to(adt)).to(vdt)
+
+    def vdot(a, b):
+        return _dot(a.to(dt), b.to(dt))
+
+    B = B.to(vdt)
     X = torch.zeros_like(B)
-    Z = M(B)
+    Z = apply_in_adt(M, B)
     P = Z
-    rz = _dot(B, Z)
+    rz = vdot(B, Z)
     R = B
-    stop2 = torch.tensor(rtol * rtol, dtype=B.dtype).item()  # rounded like the dots
+    stop2 = torch.tensor(rtol * rtol, dtype=dt).item()  # rounded like the dots
     k = 0
-    while k < maxiter and _dot(R, R).item() > stop2:
+    while k < maxiter and vdot(R, R).item() > stop2:
         for _ in range(max(1, int(unroll))):
-            AP = A.matvec(P)
-            pap = _dot(P, AP)
+            AP = apply_in_adt(A.matvec, P)
+            pap = vdot(P, AP)
             ok = pap > 0
             alpha = torch.where(ok, rz / torch.where(ok, pap, torch.ones_like(pap)),
-                                torch.zeros_like(pap))
+                                torch.zeros_like(pap)).to(vdt)
             X = X + alpha * P
             R = R - alpha * AP
-            Z = M(R)
-            rz_new = _dot(R, Z)
+            Z = apply_in_adt(M, R)
+            rz_new = vdot(R, Z)
             ok = rz > 0
             beta = torch.where(ok, rz_new / torch.where(ok, rz, torch.ones_like(rz)),
-                               torch.zeros_like(rz))
+                               torch.zeros_like(rz)).to(vdt)
             P = Z + beta * P
             rz = rz_new
             k += 1
@@ -451,12 +778,17 @@ def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
 def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
                           tol: float = 1e-6, inner_iters: int = 150,
                           inner_rtol: float = 1e-5, outer_max: int = 6,
-                          unroll: int = 4):
+                          unroll: int = 4, dot_dtype: Optional[torch.dtype] = None,
+                          vec_dtype: Optional[torch.dtype] = None):
     """float32 deflated PCG inside float64 iterative refinement.  Returns
     (X float64, true relative residual, total inner iterations, outer
     sweeps).  Each sweep solves for the correction of the exact float64
-    residual, which is recomputed with the float64 SpMV."""
-    A64 = A.astype(torch.float64)
+    residual, which is recomputed with the float64 SpMV (of the symmetric
+    operator when A is symmetric).  ``dot_dtype``/``vec_dtype`` go to
+    :func:`stencil_pcg`."""
+    # only the planes that A applies: a symmetric A's assembled planes would
+    # be a float64 copy that no matvec reads
+    A64 = StencilBlockEll(A.matvec_planes.to(torch.float64), A.plan, A.spmv)
     B64 = B.to(torch.float64)
     bnorm = torch.linalg.norm(B64).item()
     target = tol * max(bnorm, 1e-300)
@@ -467,7 +799,8 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     while rnorm > target and sweeps < outer_max:
         scale = rnorm
         dX, ki = stencil_pcg(A, (R64 / scale).to(torch.float32), M,
-                             rtol=inner_rtol, maxiter=inner_iters, unroll=unroll)
+                             rtol=inner_rtol, maxiter=inner_iters, unroll=unroll,
+                             dot_dtype=dot_dtype, vec_dtype=vec_dtype)
         X = X + dX.to(torch.float64) * scale
         R64 = B64 - A64.matvec(X)
         rnorm = torch.linalg.norm(R64).item()

@@ -8,8 +8,11 @@ copy intervals) and idle share, the number of host syncs (``.item()``
 calls: the PCG's per-``unroll`` convergence checks and the refinement's
 per-sweep residual norm), the host time blocked in them, the device idle
 time in the gaps during which a sync returned, and the kernels with the
-most device time.  The profiler slows the host, so the traced wall time is
-longer than the untraced one; the shares are of the traced run.
+most device time, and the host ops with the most self time.  The profiler
+slows the host, so the traced wall time is longer than the untraced one; the
+shares are of the traced run.  Before the trace, one untraced call is timed
+by layer: assembly + scaling, preconditioner build (with the operator's
+symmetrization), and the refined solve.
 """
 from __future__ import annotations
 
@@ -25,6 +28,27 @@ from .bench_harness import build_spe10_bench
 _SYNC_OPS = ("aten::_local_scalar_dense",)
 
 
+def layer_seconds(bench, field) -> dict:
+    """Seconds of one untraced call, split by layer (a sync after each)."""
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    S, B, s = bench.assemble(field)
+    mark()
+    bench.precondition(S, s)
+    mark()
+    bench.solve(S, B, s)
+    mark()
+    bench.precondition(S, s)  # solve built M again: take it off
+    mark()
+    asm, pre, solve, pre2 = (b - a for a, b in zip(marks, marks[1:]))
+    return {"assemble": asm, "precondition": pre, "refined_solve": solve - pre2,
+            "call": asm + solve}
+
+
 def profile_call(bisections: int) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -32,7 +56,7 @@ def profile_call(bisections: int) -> dict:
     bench = build_spe10_bench(bisections=bisections, device=dev)
     bench.fn(bench.field)  # warm-up: kernel library, allocator, cuBLAS handles
     field = bench.field * (1.0 + 1e-6)
-    torch.cuda.synchronize()
+    layers = layer_seconds(bench, field)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -61,10 +85,13 @@ def profile_call(bisections: int) -> dict:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    host_ops = sorted(((a.key, a.self_cpu_time_total, a.count) for a in prof.key_averages()),
+                      key=lambda t: -t[1])[:10]
     span = (device[-1][1] - device[0][0]) if device else 0.0
     return {
         "bisections": bisections,
         "dofs": bench.num_dofs,
+        "untraced_layer_seconds": layers,
         "device": torch.cuda.get_device_name(0),
         "residual": sol.residual,
         "inner_iterations": sol.iterations,
@@ -80,6 +107,7 @@ def profile_call(bisections: int) -> dict:
         "device_idle_in_sync_gaps_ms": sync_idle / 1e3 if device else None,
         "sync_gap_share_of_wall": (sync_idle / wall_us) if device else None,
         "top_kernels_ms": [(name[:80], t / 1e3) for name, t in top],
+        "top_host_ops_self_ms_count": [(name[:60], t / 1e3, n) for name, t, n in host_ops],
     }
 
 

@@ -1,10 +1,13 @@
 """The whole slice: the PyTorch port's SPE10 SWIPDG bench against the JAX
 package's ``build_spe10_bench(preconditioner="stencil2", tol=1e-6)`` on the
 CPU, at 2 bisections (dense-LU coarse solve) and 4 bisections (the BCR
-coarse solve of the 768k-DoF bench).  Both reach a true 1e-6 relative
-residual, the total inner PCG iterations lie within max(6, 15%) of each
-other, and the solutions agree (see ``test_slice_matches_reference`` for
-the bars)."""
+coarse solve of the 768k-DoF bench), and the three-level path of the
+3.07M/12.29M-DoF bench cut to 4 bisections (exact level (25, 5), middle
+level (100, 20)).  Both reach a true 1e-6 relative residual, the total
+inner PCG iterations lie within max(6, 15%) of each other, and the
+solutions agree (see ``test_slice_matches_reference`` for the bars).  The
+bench's size-dependent choices (middle levels, solver settings) equal the
+reference's up to 12 bisections."""
 import os
 
 import numpy as np
@@ -18,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from dune_hdd_tpu import bench_harness as jx_bench  # noqa: E402
 from dune_hdd_tpu_torch.bench_harness import (  # noqa: E402
     _select_mid_level,
+    _solver_settings,
     build_spe10_bench,
     run_spe10_bench,
 )
@@ -39,11 +43,12 @@ def _reference_defaults():
     torch.set_num_threads(threads)
 
 
-def _reference_solve(bisections):
+def _reference_solve(bisections, macro=(100, 20), mid=None):
     """The reference's stencil2 path called step by step with the bench's
-    settings, because its bench function returns only (u, residual): the
-    scaled system (planes, plan, B, s), the solution, its residual and the
-    total inner iterations."""
+    settings (up to 6 bisections) and the preconditioner's exact level
+    ``macro`` and middle level ``mid``, because its bench function returns
+    only (u, residual): the scaled system (planes, plan, B, s), the
+    solution, its residual and the total inner iterations."""
     from dune_hdd_tpu.functions.base import (
         ConstantFunction, IndicatorFunction, ScaledFunction, SumFunction)
     from dune_hdd_tpu.functions.spe10 import _synthetic_model1_field
@@ -69,7 +74,8 @@ def _reference_solve(bisections):
             splan, pre, jnp.broadcast_to(jnp.asarray(cf)[None], (8, KY, KX)))
         B0 = sa.structured_rhs(splan, IndicatorFunction(jx_bench._FORCES))
         S, B, s = sa.scale_planes(S0, B0)
-        M = stencil.stencil_deflation_preconditioner(S, (100, 20), newton_schulz=2,
+        M = stencil.stencil_deflation_preconditioner(S, macro, newton_schulz=2,
+                                                     mid_shape=mid, mid_cheb=2,
                                                      weight=1.0 / s)
     X, res, iters = stencil.stencil_refined_solve(S, B, M, tol=1e-6, inner_iters=150,
                                                   inner_rtol=1e-1, outer_max=120, unroll=2)
@@ -122,6 +128,29 @@ def test_slice_matches_reference(bisections, u_bar):
                                atol=1e-4 * np.abs(ref["u"]).max())
 
 
+def test_three_level_slice_matches_reference():
+    """The three-level path at 4 bisections against the reference's step by
+    step, at the bars of ``test_slice_matches_reference`` at this size."""
+    ref = _reference_solve(4, macro=(25, 5), mid=(100, 20))
+    assert ref["residual"] <= 1e-6
+    bench = build_spe10_bench(4, macro=(25, 5))
+    assert bench.mid_shape == (100, 20)
+    sol = bench.fn(bench.field)
+    print(f"three-level: inner iterations port {sol.iterations} ({sol.sweeps} sweeps), "
+          f"reference {ref['iterations']}; residual port {sol.residual:.3e}, "
+          f"reference {ref['residual']:.3e}")
+    assert sol.residual <= 1e-6
+    assert abs(sol.iterations - ref["iterations"]) <= max(6, 0.15 * ref["iterations"])
+    np.testing.assert_allclose(sol.u.numpy(), ref["u"], rtol=0,
+                               atol=5e-4 * np.abs(ref["u"]).max())
+    # the port's preconditioner and refined solve on the reference's system
+    S_j = stencil_from_numpy(ref["planes"], ref["plan"], "cpu")
+    sol = bench.solve(S_j, torch.as_tensor(ref["B"]), torch.as_tensor(ref["s"]))
+    assert sol.residual <= 1e-6
+    np.testing.assert_allclose(sol.u.numpy(), ref["u"], rtol=0,
+                               atol=1e-4 * np.abs(ref["u"]).max())
+
+
 def test_stencil_from_numpy_round_trips_reference_planes():
     ref = _reference_solve(2)
     S = stencil_from_numpy(ref["planes"], ref["plan"], "cpu")
@@ -140,8 +169,28 @@ def test_mid_level_selection_matches_reference():
     for KY, KX in [(20, 100), (40, 200), (80, 400), (160, 800), (320, 1600), (640, 3200)]:
         assert _select_mid_level(KY, KX, (100, 20)) == \
             jx_bench._select_mid_level(KY, KX, (100, 20))[0]
+    for bisections in range(2, 13, 2):
+        KY, KX = 10 << (bisections // 2), 50 << (bisections // 2)
+        assert _select_mid_level(KY, KX, (100, 20)) == \
+            jx_bench._select_mid_level(KY, KX, (100, 20))[0]
     assert _select_mid_level(80, 400, (100, 20)) is None
-    with pytest.raises(NotImplementedError, match="mid-level chain"):
-        build_spe10_bench(bisections=8)
+    assert _select_mid_level(160, 800, (100, 20)) == (400, 80)
+    assert _select_mid_level(320, 1600, (100, 20)) == (400, 80)
+    assert _select_mid_level(640, 3200, (100, 20)) == [(1600, 320), (400, 80)]
+    assert _select_mid_level(40, 200, (25, 5)) == (100, 20)
     with pytest.raises(ValueError):
         build_spe10_bench(bisections=3)
+
+
+@pytest.mark.parametrize("bisections", range(2, 13, 2))
+def test_solver_settings_match_reference(bisections):
+    """The reference bench's size-dependent defaults
+    (dune_hdd_tpu/bench_harness.py:130-176, 391-402)."""
+    lattice = (10 << (bisections // 2), 50 << (bisections // 2))
+    st = _solver_settings(bisections, lattice)
+    inner_rtol = {2: 1e-1, 4: 1e-1, 6: 1e-1, 8: 3e-1, 10: 7e-1, 12: 7e-1}[bisections]
+    assert st.inner_iters == (300 if bisections >= 8 else 150)
+    assert st.inner_rtol == inner_rtol
+    assert st.outer_max == (500 if inner_rtol >= 3e-1 else 120)
+    assert (st.unroll, st.newton_schulz, st.mid_cheb) == (2, 2, 2)
+    assert st.symmetric == (bisections >= 8) == (lattice[0] * lattice[1] >= 128000)
