@@ -3,8 +3,11 @@
 kernels, checks each against its plain PyTorch version, drives the SPE10
 SWIPDG assemble-and-solve bench at 768k, 3.07M and 12.29M DoF (6, 8 and 10
 bisections) through the plane SpMV kernel, drives the structured SpMV and
-the probe through their own entry points, and times every kernel beside its
-plain version.  Exits non-zero if any phase fails or there is no card.
+the probe through their own entry points, times every kernel beside its
+plain version and one library call that computes the same function, then
+runs the ESV2007 EOC study (levels 0-6, up to 1.57M DoF) and 8 online
+thermalblock solves at 1.57M DoF through the general parametric SWIPDG
+path.  Exits non-zero if any phase fails or there is no card.
 
     python3 chip_smoke.py
 
@@ -14,8 +17,11 @@ kernel vs plain (plane SpMV at 6 and 2 bisections; structured SpMV on the
 structured path, probe path, kernel path vs plain path at 4 bisections,
 kernel timing at 768k DoF, main path at 8 bisections with the symmetric
 operator's checks, main path at 10 bisections with the plane SpMV checked
-against its plain version and timed on the symmetric 12.29M-DoF planes.  Then a JSON line of the kernels, the card's name and power
-limit, and last {"ok": true, "device": {...}}.
+against its plain version and timed on the symmetric 12.29M-DoF planes, the
+ESV2007 study (stencil_cg with the 4x4 macro: the table at levels 0-3, EOC
+at 4-6) and the thermalblock online solves (block_cg through make_solve_fn,
+each rechecked in float64, and one stencil_cg solve).  Then a JSON line of
+the kernels, the card's name and power limit, and last {"ok": true, ...}.
 """
 import json
 import statistics
@@ -263,6 +269,43 @@ def phase_kernel_path_vs_plain_path(dev):
         iterations=repr([x.iterations for x in sols]))
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
+# peak rates outside the tensor cores (NVIDIA's data sheet, H100 SXM at 700 W)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound(nbytes, flops, dtype):
+    """(least ms the card could take, "bytes" or "operations"): each input
+    read once and each output written once at the memory rate, against the
+    operations at the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bsr_operator(planes, plan):
+    """The plane operator as a torch.sparse BSR tensor with 3x3 blocks over
+    the flat cell-major vector in (subclass, iy, ix) order, which is also the
+    structured numbering: the library yardstick of both SpMV kernels (timed
+    here, used nowhere in the port)."""
+    _, nd, _, _, KY, KX = planes.shape
+    L, dev = KY * KX, planes.device
+    nc = 8 * L
+    iy = torch.arange(KY, device=dev)[:, None]
+    ix = torch.arange(KX, device=dev)[None, :]
+    cols = [torch.arange(nc, device=dev).reshape(8, KY, KX)]
+    for s in range(3):
+        cols.append(torch.stack([ks * L + ((iy + dy) % KY) * KX + (ix + dx) % KX
+                                 for ks, dy, dx in (plan[k][s] for k in range(8))]))
+    cols, order = torch.sort(torch.stack(cols, dim=-1).reshape(nc, 4), dim=1)
+    if not bool((cols[:, 1:] != cols[:, :-1]).all()):
+        raise AssertionError("two slots of one cell share a neighbour")
+    vals = planes.permute(3, 4, 5, 0, 1, 2).reshape(nc, 4, nd, nd)
+    vals = torch.gather(vals, 1, order[:, :, None, None].expand(-1, -1, nd, nd))
+    crow = torch.arange(0, 4 * nc + 1, 4, device=dev)
+    return torch.sparse_bsr_tensor(crow, cols.reshape(-1), vals.reshape(-1, nd, nd).contiguous(),
+                                   size=(nc * nd, nc * nd), check_invariants=False)
+
+
 def time_calls(fn, calls=100):
     """Device time of one call (ms): the median of ``calls`` chained calls,
     each between two CUDA events.  A device-side sleep queued first keeps
@@ -286,34 +329,44 @@ def time_calls(fn, calls=100):
     return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
 
 
-def timed(kernel, label, fn, plain_fn, nbytes, **fields):
-    """Times a kernel and its plain version; logs µs and GB/s under the
-    bytes model; returns (ms, plain_ms)."""
-    ms, plain_ms = time_calls(fn), time_calls(plain_fn)
+def timed(kernel, label, fn, plain_fn, library_fn, nbytes, flops, dtype, **fields):
+    """Times a kernel, its plain version and the one library call that
+    computes the same function; logs µs and GB/s under the bytes model and
+    the bound; returns the timing fields of the kernels line."""
+    ms, plain_ms, library_ms = time_calls(fn), time_calls(plain_fn), time_calls(library_fn)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
     log("timing", kernel=kernel, case=label, kernel_us=f"{ms * 1e3:.2f}",
         kernel_gbps=f"{nbytes / ms / 1e6:.1f}", plain_us=f"{plain_ms * 1e3:.2f}",
-        plain_gbps=f"{nbytes / plain_ms / 1e6:.1f}", bytes=nbytes, **fields, card=repr(card()))
-    return ms, plain_ms
+        library_us=f"{library_ms * 1e3:.2f}", bound_us=f"{bound_ms * 1e3:.2f}",
+        bound_by=bound_by, bytes=nbytes, flops=flops, **fields, card=repr(card()))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def time_plane_spmv(S, B, label, W=None):
     """Checks the plane SpMV against its plain version on these planes and
-    times both, in f32 and f64.  Returns ({dtype name: (ms, plain_ms)}, the
-    max abs error over both dtypes); bytes = planes + 2 vectors."""
+    times both, and the BSR library call, in f32 and f64.  Returns ({dtype
+    name: timing fields}, the max abs error over both dtypes); bytes =
+    planes + 2 vectors, operations = one multiply-add per plane entry."""
     from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
 
     out, err = {}, 0.0
     for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         Wd, X = (S.planes if W is None else W).to(dtype), B.to(dtype)
         name = str(dtype).replace("torch.", "")
-        e = rel_check(f"plane_spmv vs plain ({label} {name})", plane_spmv(Wd, X, S.plan),
+        y = plane_spmv(Wd, X, S.plan)
+        e = rel_check(f"plane_spmv vs plain ({label} {name})", y,
                       plane_spmv_reference(Wd, X, S.plan), rel)
         err = max(err, e)
+        A, x = bsr_operator(Wd, S.plan), flat(X)
+        e_lib = rel_check(f"BSR library call vs plane_spmv ({label} {name})", A @ x, flat(y),
+                          10 * rel)
         out[name] = timed("plane_spmv", f"{label} {name}", lambda: plane_spmv(Wd, X, S.plan),
-                          lambda: plane_spmv_reference(Wd, X, S.plan),
-                          (Wd.numel() + 2 * X.numel()) * Wd.element_size(), dofs=X.numel(),
-                          max_abs_err=f"{e:.3e}")
-        del Wd, X
+                          lambda: plane_spmv_reference(Wd, X, S.plan), lambda: A @ x,
+                          (Wd.numel() + 2 * X.numel()) * Wd.element_size(), 2 * Wd.numel(),
+                          dtype, dofs=X.numel(), max_abs_err=f"{e:.3e}",
+                          library_max_abs_diff=f"{e_lib:.3e}")
+        del Wd, X, A, x, y
     return out, err
 
 
@@ -323,14 +376,22 @@ def phase_timing_768k(dev, S, B, A, b_flat):
         structured_spmv, structured_spmv_reference)
 
     _, plane_err = time_plane_spmv(S, B, "768k")
+    lib = bsr_operator(S.planes, S.plan)  # the same operator: planes in structured order
+    y = structured_spmv(A.planes, b_flat, A.offsets)
+    e_lib = rel_check("BSR library call vs structured_spmv", lib @ b_flat, y, 1e-4)
     st = timed("structured_spmv", "768k f32", lambda: structured_spmv(A.planes, b_flat, A.offsets),
-               lambda: structured_spmv_reference(A.planes, b_flat, A.offsets),
-               (A.planes.numel() + 2 * b_flat.numel()) * 4, dofs=b_flat.numel())
+               lambda: structured_spmv_reference(A.planes, b_flat, A.offsets), lambda: lib @ b_flat,
+               (A.planes.numel() + 2 * b_flat.numel()) * 4, 2 * A.planes.numel(), torch.float32,
+               dofs=b_flat.numel(), library_max_abs_diff=f"{e_lib:.3e}")
+    del lib, y
     pr = {}
+    gen = torch.Generator(device="cpu").manual_seed(16)
     for shape in ((64, 128), 1 << 24):
-        x = torch.ones(shape, device=dev)
-        pr[shape] = timed("probe", repr(shape), lambda: probe(x, x), lambda: probe_reference(x, x),
-                          3 * x.numel() * 4)
+        # two distinct inputs: the bytes model reads both
+        x, y = (torch.rand(shape, generator=gen).to(dev) for _ in range(2))
+        pr[shape] = timed("probe", repr(shape), lambda: probe(x, y), lambda: probe_reference(x, y),
+                          lambda: torch.add(y, x, alpha=2), 3 * x.numel() * 4, 2 * x.numel(),
+                          torch.float32)
     return st, pr[(64, 128)], plane_err
 
 
@@ -356,6 +417,176 @@ def phase_symmetric_checks(S):
         sym_vs_assembled_max_abs_diff=f"{diff:.3e}",
         rel=f"{diff / y_assembled.abs().max().item():.3e}")
     return max(err, err64)
+
+
+def check_plane_spmv_at(system, what):
+    """plane_spmv against its plain version on a discretization's scaled
+    float64 plane operator (the shapes its stencil_cg path gives it)."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
+
+    S = system.S
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    X = torch.randn(tuple(system.B.shape), generator=gen, dtype=torch.float64).to(S.planes.device)
+    return rel_check(f"plane_spmv vs plain ({what})", plane_spmv(S.planes, X, S.plan),
+                     plane_spmv_reference(S.planes, X, S.plan), 1e-12)
+
+
+ESV_LEVELS = 6  # 384 to 1,572,864 DoF
+
+
+def phase_esv2007_study(dev):
+    """The ESV2007 ALU-conforming SWIPDG EOC study through EocStudy with the
+    stencil_cg option (plane_spmv in float64), levels 0-6; levels 0-3 against
+    the published table, EOC above 1.9 (L2) and 0.95 (H1_semi) up to the
+    last level.  The launch count is set to 0 just before and read just
+    after.  Returns (launches, the kernel's max abs error at level 6)."""
+    from types import SimpleNamespace
+
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.studies import EocStudy, check_eoc_study_for_success
+    from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase
+    from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
+
+    max_iter = 50000
+    options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
+    reset_timings()
+    torch.cuda.reset_peak_memory_stats()
+    plane_spmv.launches = 0
+    t0 = time.perf_counter()
+    tc = ESV2007TestCase(num_refinements=ESV_LEVELS)
+    hierarchy_s = time.perf_counter() - t0
+    study = EocStudy(tc, SWIPDGDiscretization, solver_options=options, device=dev)
+    results = study.run(verbose=False)
+    launches = plane_spmv.launches
+    host = timings()
+    log("esv2007_study", levels=f"0-{ESV_LEVELS}", hierarchy_host_seconds=f"{hierarchy_s:.2f}",
+        reference_level_cells=tc.reference_grid.num_cells,
+        pattern_host_seconds=repr([round(t, 3) for t in host.get("swipdg.pattern", [])]),
+        block_ell_map_host_seconds=repr(
+            [round(t, 3) for t in host.get("block_ell_from_sparse.slot_map", [])]),
+        launches=launches, peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    for r, info in enumerate(study.level_info):
+        log("esv2007_level", level=r, dofs=info["num_dofs"],
+            **{k: f"{results[k][r]:.6e}" for k in results},
+            iterations=info["iterations"], time_to_solution=f"{study.time_to_solution[r]:.3f}",
+            assembly_seconds=f"{info['assembly_seconds']:.3f}",
+            solve_seconds=f"{info['solve_seconds']:.3f}")
+        if not (info["type"] == "stencil_cg" and 0 < info["iterations"] < max_iter):
+            raise AssertionError(f"level {r}: {info}")
+    check_eoc_study_for_success(SimpleNamespace(results={k: v[:4] for k, v in results.items()}),
+                                "ESV2007", "alu_conforming", 1)
+    eoc_l2, eoc_h1 = study.eoc("L2"), study.eoc("H1_semi")
+    if not (min(eoc_l2[3:]) > 1.9 and min(eoc_h1[3:]) > 0.95):
+        raise AssertionError(f"EOC L2 {eoc_l2}, H1_semi {eoc_h1}")
+    if launches <= 0:
+        raise AssertionError("the study did not launch plane_spmv")
+    err = check_plane_spmv_at(study.discretizations[-1].stencil_system(),
+                              f"ESV2007 level {ESV_LEVELS}")
+    log("esv2007_eoc", table_levels="0-3 ok", eoc_L2=repr([round(e, 4) for e in eoc_l2]),
+        eoc_H1_semi=repr([round(e, 4) for e in eoc_h1]), plane_spmv_f64_max_abs_err=f"{err:.3e}",
+        card=repr(card()))
+    return launches, err
+
+
+def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
+    """SWIPDG with the 2x2 thermalblock at 14 bisections (1,572,864 DoF, all
+    Dirichlet) through make_solve_fn at ``count`` values of mu drawn from
+    [0.1, 1]^4, each rechecked on the unscaled float64 system with the plain
+    SparseMatrix.matvec; one mu also through stencil_cg.  The launch count
+    is set to 0 just before and read just after.  Returns (launches, the
+    kernel's max abs error on this operator)."""
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.problems import ThermalblockProblem
+
+    torch.cuda.reset_peak_memory_stats()
+    plane_spmv.launches = 0
+    t0 = time.perf_counter()
+    grid = alu_cube_grid((0, 0), (1, 1), (4, 4), refinements=bisections)
+    t1 = time.perf_counter()
+    d = SWIPDGDiscretization(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"},
+                             ThermalblockProblem((2, 2)), device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    solve_fn, thetas = d.make_solve_fn(tol=1e-8, maxiter=50000, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log("thermalblock_setup", dofs=d.space.num_dofs, scheme=d.scheme,
+        grid_host_seconds=f"{t1 - t0:.2f}", assembly_seconds=f"{t2 - t1:.2f}",
+        block_ell_stack_seconds=f"{t3 - t2:.2f}")
+    mus = np.random.default_rng(seed).uniform(0.1, 1.0, (count, 4))
+    first = None
+    for i, mu in enumerate(mus):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, res, iters = solve_fn(*thetas(mu))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        A, b = d.freeze_operator(mu), d.freeze_rhs(mu)
+        recheck = (torch.linalg.norm(b - A.matvec(u)) / torch.linalg.norm(b)).item()
+        del A, b
+        log("thermalblock_solve", i=i, mu=repr([round(float(m), 6) for m in mu]),
+            iterations=iters, seconds=f"{seconds:.3f}", recurrence_residual=f"{float(res):.3e}",
+            residual_f64_recheck=f"{recheck:.3e}")
+        if not (recheck <= 1e-7 and iters < 50000 and bool(torch.isfinite(u).all())):
+            raise AssertionError(f"mu {mu}: residual {recheck:.3e}, {iters} iterations")
+        if first is None:
+            first = u
+    t0 = time.perf_counter()
+    u_st = d.solve(mus[0], options={"type": "stencil_cg", "precision": 1e-8, "max_iter": 50000})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = plane_spmv.launches
+    info = d.last_solve_info
+    diff = ((u_st - first).abs().max() / first.abs().max()).item()
+    if not (info["type"] == "stencil_cg" and diff <= 1e-5 and launches > 0):
+        raise AssertionError(f"stencil_cg: {info}, rel diff {diff:.3e}, {launches} launches")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    err = check_plane_spmv_at(d.stencil_system(mus[0]), "thermalblock 14 bisections")
+    time_general_spmvs(d, mus[0], first)
+    log("thermalblock_stencil_cg", iterations=info["iterations"], seconds=f"{seconds:.3f}",
+        rel_max_diff_vs_block_cg=f"{diff:.3e}", launches=launches, peak_gb=f"{peak:.2f}",
+        plane_spmv_f64_max_abs_err=f"{err:.3e}", card=repr(card()))
+    return launches, err
+
+
+def count_device_ops(fn):
+    """Kernels and copies one call puts on the card, from torch.profiler's
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def time_general_spmvs(d, mu, like):
+    """Device time of the general path's two plain-torch SpMVs (candidates
+    for later hand kernels) on the frozen float64 operator: the scalar ELL
+    SparseMatrix.matvec and the block-ELL BlockEllMatrix.matvec; bytes =
+    values + column indices + x + y."""
+    from dune_hdd_tpu_torch.la.block_ell import block_ell_from_sparse
+
+    A = d.freeze_operator(mu)
+    Ab = block_ell_from_sparse(d.space, A)
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    x = torch.randn(like.shape, generator=gen, dtype=like.dtype).to(like.device)
+    rel_check("BlockEllMatrix.matvec vs SparseMatrix.matvec", Ab.matvec(x), A.matvec(x), 1e-12)
+    n, k = A.ell.shape
+    cases = {"SparseMatrix.matvec": (lambda: A.matvec(x), n * k * 16 + 2 * n * 8),
+             "BlockEllMatrix.matvec": (lambda: Ab.matvec(x),
+                                       Ab.blocks.numel() * 8 + Ab.neighbors.size * 8 + 2 * n * 8)}
+    for name, (fn, nbytes) in cases.items():
+        ms = time_calls(fn)
+        log("plain_spmv_timing", op=name, dofs=n, float64=True, us=f"{ms * 1e3:.2f}",
+            device_ops_per_call=count_device_ops(fn),
+            bytes=nbytes, gbps=f"{nbytes / ms / 1e6:.1f}",
+            bound_us=f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f}", card=repr(card()))
 
 
 def main():
@@ -387,14 +618,23 @@ def main():
     del r
     plane_times, err = time_plane_spmv(S10, B10, "12.29M symmetric", W=S10.sym_planes)
     plane_ms, plane_err = plane_times["float32"], max(plane_err, err)
+    del S10, B10
+    torch.cuda.empty_cache()
+
+    n, err = phase_esv2007_study(dev)
+    launches["plane_spmv"] += n
+    plane_err = max(plane_err, err)
+    torch.cuda.empty_cache()
+    n, err = phase_thermalblock_online(dev)
+    launches["plane_spmv"] += n
+    plane_err = max(plane_err, err)
     log("done", seconds=f"{time.perf_counter() - _T0:.1f}")
 
     rows = [("plane_spmv", plane_err, plane_ms), ("structured_spmv", structured_err, structured_ms),
             ("probe", probe_err, probe_ms)]
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-        "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, err, (ms, plain_ms) in rows]}))
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+        launches=launches[name], max_abs_err=err, **times) for name, err, times in rows]}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .functions.base import ConstantFunction, IndicatorFunction, ScaledFunction, SumFunction
 from .functions.spe10 import MODEL1_NX, MODEL1_NZ, _synthetic_model1_field
 from .grid.boundaryinfo import make_boundary_info
@@ -137,9 +138,10 @@ def _highest_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cpu",
+def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
                       spmv: Callable = plane_spmv, macro=_MACRO) -> Spe10Bench:
-    """Set up the bench at ``bisections`` (even) on ``device``.  ``spmv`` is
+    """Set up the bench at ``bisections`` (even) on ``device`` (the card
+    unless the caller passes ``device="cpu"``; raises without one).  ``spmv`` is
     the SpMV the operator applies (the CUDA kernel's plain version can be
     substituted for comparison); ``macro`` is the exact coarse lattice of
     the preconditioner (the permeability grid by default)."""
@@ -151,7 +153,7 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cpu",
     mid_shape = _select_mid_level(KY, KX, macro)
     settings = _solver_settings(bisections, (KY, KX))
     _highest_precision()
-    device = torch.device(device)
+    device = resolve_device(device)
     grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
     binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
     order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
@@ -221,7 +223,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
-                    device="cpu") -> dict:
+                    device="cuda") -> dict:
     """Median wall time of ``repeats`` timed calls (after one warm-up call),
     each on the field perturbed by 1 + 1e-6 (i+1).  Besides the numbers
     (set-up and warm-up seconds included), the dict carries the bench

@@ -2,19 +2,79 @@
 
 The port never imports jax; callers hand over ``np.asarray`` copies of the
 reference's arrays (for example the planes of a reference StencilBlockEll,
-or its StructuredAssemblyPlan, whose fields are already numpy), so both
-sides can run on the same operator and inputs.
+its StructuredAssemblyPlan, or the pattern fields and slot values of its
+assembled SparseMatrix family), so both sides can run on the same operator
+and inputs.
 """
 from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .affine import AffineDecomposition
 from .la.block_ell import StructuredBlockEll
+from .la.sparse import SparseMatrix, SparsityPattern
 from .la.stencil import StencilBlockEll
 from .la.stencil_assembly import StructuredAssemblyPlan, _FaceFamily
+from .parameters import ParameterFunctional
 
-__all__ = ["stencil_from_numpy", "structured_from_numpy", "assembly_plan_from_numpy"]
+__all__ = ["stencil_from_numpy", "structured_from_numpy", "assembly_plan_from_numpy",
+           "pattern_from_numpy", "sparse_from_numpy", "affine_from_numpy"]
+
+_PATTERN_ARRAYS = ("perm", "seg_ids", "slot_rows", "slot_cols", "ell_cols", "ell_mask",
+                   "slot_ell_pos", "diag_slot")
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def pattern_from_numpy(pattern_fields) -> SparsityPattern:
+    """The port's SparsityPattern from a mapping or object with the
+    reference's pattern fields (shape, nnz, ell_width and the index arrays),
+    copying every array."""
+    return SparsityPattern(
+        shape=tuple(int(v) for v in _field(pattern_fields, "shape")),
+        nnz=int(_field(pattern_fields, "nnz")),
+        ell_width=int(_field(pattern_fields, "ell_width")),
+        **{name: np.array(_field(pattern_fields, name)) for name in _PATTERN_ARRAYS})
+
+
+def sparse_from_numpy(pattern_fields, values: np.ndarray, device,
+                      pattern: Optional[SparsityPattern] = None) -> SparseMatrix:
+    """A SparseMatrix of slot ``values`` [nnz] on ``device`` (in the values'
+    dtype) over the pattern described by ``pattern_fields`` (or over an
+    already converted ``pattern``, to share one between matrices)."""
+    pattern = pattern if pattern is not None else pattern_from_numpy(pattern_fields)
+    values = np.asarray(values)
+    if values.shape != (pattern.nnz,):
+        raise ValueError(f"values must be [{pattern.nnz}], got {values.shape}")
+    return SparseMatrix(pattern, torch.tensor(values, device=device))
+
+
+def affine_from_numpy(components: Sequence[np.ndarray], coefficients: Sequence,
+                      affine_part: Optional[np.ndarray], device,
+                      pattern_fields=None) -> AffineDecomposition:
+    """An AffineDecomposition of vectors (``pattern_fields`` None) or of
+    SparseMatrix slot values sharing one pattern.  Each coefficient is a
+    ``(parameter_type mapping, expression)`` pair or an object with
+    ``parameter_type`` and ``expression`` (the reference's functionals)."""
+    pattern = None if pattern_fields is None else pattern_from_numpy(pattern_fields)
+
+    def payload(a):
+        if pattern is None:
+            return torch.tensor(np.asarray(a), device=device)
+        return sparse_from_numpy(None, a, device, pattern=pattern)
+
+    def functional(c):
+        pt, expr = (c if isinstance(c, tuple) else (c.parameter_type, c.expression))
+        return ParameterFunctional(dict(pt.items()), expr)
+
+    return AffineDecomposition([payload(a) for a in components],
+                               [functional(c) for c in coefficients],
+                               None if affine_part is None else payload(affine_part))
 
 
 def stencil_from_numpy(planes: np.ndarray, plan, device) -> StencilBlockEll:

@@ -1,10 +1,12 @@
 """Flat-array triangle grids of the ALU-bisected cube (host numpy).
 
-Counterpart of ``dune_hdd_tpu/grid/structured.py``, reduced to what the
-SPE10 SWIPDG bench path needs: the criss triangulation of a rectangle and
-uniform newest-vertex bisection.  A grid is a set of static index arrays;
-the numbering is identical to the reference package's, so every derived
-array (cell order, assembly plan) matches it bit for bit.
+Counterpart of ``dune_hdd_tpu/grid/structured.py`` for triangle grids: the
+criss triangulation of a rectangle, uniform newest-vertex bisection and
+uniform red refinement, each refinement with its ``RefinementInfo``.  A grid
+is a set of static index arrays; the numbering is identical to the reference
+package's, so every derived array (cell order, assembly plan, DoF maps)
+matches it bit for bit.  Quad and interval grids are not ported yet
+(ROADMAP queue 1, slice 2).
 
 Conventions
 -----------
@@ -20,9 +22,24 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["Grid", "rectangle_grid", "bisect", "alu_cube_grid", "TRIANGLE"]
+__all__ = ["Grid", "RefinementInfo", "rectangle_grid", "refine", "bisect", "alu_cube_grid",
+           "TRIANGLE"]
 
 TRIANGLE = "triangle"
+
+
+@dataclass(frozen=True)
+class RefinementInfo:
+    """Maps between a grid and its uniform refinement.
+
+    vertex_parents[nv, 2]: each fine vertex as midpoint of two coarse
+    vertices (copied coarse vertices appear as (v, v)).  parent_cell[nc_fine]:
+    coarse cell containing each fine cell.  child_index[nc_fine]: position
+    within the parent."""
+
+    vertex_parents: np.ndarray
+    parent_cell: np.ndarray
+    child_index: np.ndarray
 
 
 @dataclass(frozen=True, eq=False)  # identity equality/hash: grids are built once
@@ -60,6 +77,10 @@ class Grid:
         return self.faces.shape[0]
 
     @property
+    def vertices_per_cell(self) -> int:
+        return self.cells.shape[1]
+
+    @property
     def faces_per_cell(self) -> int:
         return self.cell_faces.shape[1]
 
@@ -73,6 +94,19 @@ class Grid:
         return self.cell_vertices.mean(axis=1)
 
     @cached_property
+    def cell_volumes(self) -> np.ndarray:
+        v = self.cell_vertices
+        e1 = v[:, 1] - v[:, 0]
+        e2 = v[:, 2] - v[:, 0]
+        return 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+
+    @cached_property
+    def cell_diameters(self) -> np.ndarray:
+        v = self.cell_vertices
+        e = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 1], v[:, 0] - v[:, 2]], axis=1)
+        return np.linalg.norm(e, axis=-1).max(axis=1)
+
+    @cached_property
     def face_vertices(self) -> np.ndarray:
         """[NF, 2, 2] coordinates of face endpoints."""
         return self.vertices[self.faces]
@@ -80,6 +114,12 @@ class Grid:
     @cached_property
     def face_centroids(self) -> np.ndarray:
         return self.face_vertices.mean(axis=1)
+
+    @cached_property
+    def face_volumes(self) -> np.ndarray:
+        """Face lengths |e|."""
+        fv = self.face_vertices
+        return np.linalg.norm(fv[:, 1] - fv[:, 0], axis=-1)
 
     @cached_property
     def face_normals(self) -> np.ndarray:
@@ -105,6 +145,13 @@ class Grid:
         return ~self.boundary_faces
 
     @cached_property
+    def boundary_vertices(self) -> np.ndarray:
+        """Boolean mask [NV]: vertices lying on boundary faces."""
+        mask = np.zeros(self.num_vertices, dtype=bool)
+        mask[self.faces[self.boundary_faces].ravel()] = True
+        return mask
+
+    @cached_property
     def bounding_box(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.vertices.min(axis=0), self.vertices.max(axis=0)
 
@@ -120,8 +167,11 @@ def _build_connectivity(cells: np.ndarray):
                      axis=1)  # [NC, 3, 2]
     nc, nfc, _ = local.shape
     flat = local.reshape(-1, 2)
-    key = np.sort(flat, axis=1)
-    uniq, inverse = np.unique(key, axis=0, return_inverse=True)
+    key = np.sort(flat, axis=1).astype(np.int64)
+    # rows (a, b) with a <= b sorted as the scalars a * NV + b: the order and
+    # inverse of np.unique(key, axis=0), from a one-dimensional sort
+    nv = int(cells.max()) + 1
+    uniq, inverse = np.unique(key[:, 0] * nv + key[:, 1], return_inverse=True)
     inverse = inverse.reshape(-1)
     nf = uniq.shape[0]
 
@@ -172,12 +222,44 @@ def rectangle_grid(lower=(0.0, 0.0), upper=(1.0, 1.0), num_elements=(4, 4)) -> G
     return Grid(vertices=vertices, cells=cells.astype(np.int32), cell_type=TRIANGLE)
 
 
-def bisect(grid: Grid) -> Grid:
+def refine(grid: Grid) -> Tuple[Grid, RefinementInfo]:
+    """Uniform red refinement of a triangle grid: fine vertices are
+    [coarse vertices] ++ [face midpoints (by face id)]; the fine cells of
+    coarse cell c occupy slots 4c..4c+3."""
+    if grid.cell_type != TRIANGLE:
+        raise NotImplementedError(
+            "red refinement of quad and interval grids is not ported yet "
+            "(ROADMAP queue 1, slice 2: quads)")
+    nv, nf, nc = grid.num_vertices, grid.num_faces, grid.num_cells
+    mid = grid.face_vertices.mean(axis=1)
+    edge_vid = nv + np.arange(nf, dtype=np.int64)
+    new_vertices = np.concatenate([grid.vertices, mid], axis=0)
+    vertex_parents = np.concatenate(
+        [np.stack([np.arange(nv)] * 2, axis=-1), grid.faces.astype(np.int64)], axis=0)
+    c = grid.cells
+    # midpoint of local face k  (f0=(v0,v1), f1=(v1,v2), f2=(v2,v0))
+    m = edge_vid[grid.cell_faces]  # [NC, 3]
+    m01, m12, m20 = m[:, 0], m[:, 1], m[:, 2]
+    ch0 = np.stack([c[:, 0], m01, m20], axis=-1)
+    ch1 = np.stack([m01, c[:, 1], m12], axis=-1)
+    ch2 = np.stack([m20, m12, c[:, 2]], axis=-1)
+    ch3 = np.stack([m01, m12, m20], axis=-1)  # centre triangle
+    new_cells = np.stack([ch0, ch1, ch2, ch3], axis=1).reshape(-1, 3)
+    info = RefinementInfo(
+        vertex_parents=vertex_parents,
+        parent_cell=np.repeat(np.arange(nc, dtype=np.int64), 4),
+        child_index=np.tile(np.arange(4, dtype=np.int64), nc),
+    )
+    return Grid(vertices=new_vertices, cells=new_cells.astype(np.int32),
+                cell_type=TRIANGLE), info
+
+
+def bisect(grid: Grid) -> Tuple[Grid, RefinementInfo]:
     """Uniform newest-vertex bisection: each cell's refinement edge is its
     local face 0; children of (a, b, c) with midpoint m of (a, b) are
     (c, a, m) and (b, c, m).  Raises if the bisection would create hanging
     nodes."""
-    nv = grid.num_vertices
+    nv, nc = grid.num_vertices, grid.num_cells
     ref_face = grid.cell_faces[:, 0]
     claims = np.bincount(ref_face, minlength=grid.num_faces)
     used = np.zeros(grid.num_faces, dtype=bool)
@@ -193,13 +275,21 @@ def bisect(grid: Grid) -> Grid:
     new_vid_of_face[ref_faces] = nv + np.arange(len(ref_faces))
     mid = grid.face_vertices[ref_faces].mean(axis=1)
     new_vertices = np.concatenate([grid.vertices, mid], axis=0)
+    vertex_parents = np.concatenate(
+        [np.stack([np.arange(nv)] * 2, axis=-1), grid.faces[ref_faces].astype(np.int64)],
+        axis=0)
     a, b, c = grid.cells[:, 0], grid.cells[:, 1], grid.cells[:, 2]
     m = new_vid_of_face[ref_face]
     ch0 = np.stack([c, a, m], axis=-1)
     ch1 = np.stack([b, c, m], axis=-1)
     new_cells = np.stack([ch0, ch1], axis=1).reshape(-1, 3)
+    info = RefinementInfo(
+        vertex_parents=vertex_parents,
+        parent_cell=np.repeat(np.arange(nc, dtype=np.int64), 2),
+        child_index=np.tile(np.arange(2, dtype=np.int64), nc),
+    )
     return Grid(vertices=new_vertices, cells=new_cells.astype(np.int32),
-                cell_type=TRIANGLE)
+                cell_type=TRIANGLE), info
 
 
 def alu_cube_grid(lower=(0.0, 0.0), upper=(1.0, 1.0), num_elements=(4, 4),
@@ -214,5 +304,5 @@ def alu_cube_grid(lower=(0.0, 0.0), upper=(1.0, 1.0), num_elements=(4, 4),
     cells[lower_rows] = cells[lower_rows][:, [0, 2, 1]]
     g = Grid(vertices=g.vertices, cells=cells, cell_type=TRIANGLE)
     for _ in range(int(refinements)):
-        g = bisect(g)
+        g, _ = bisect(g)
     return g

@@ -2,8 +2,9 @@
 its two- and multi-level deflation preconditioners and the mixed-precision
 refined PCG.
 
-Counterpart of ``dune_hdd_tpu/la/stencil.py`` for the bench's path (the
-factored BCR coarse solve for more than 4096 aggregates is not ported).  The
+Counterpart of ``dune_hdd_tpu/la/stencil.py`` for the bench's path and the
+``stencil_cg`` solver option of the SWIPDG discretization (the factored BCR
+coarse solve for more than 4096 aggregates is not ported).  The
 operator lives as planes W[slot, i, j, subclass, KY, KX]
 (slot 0 = self) and vectors as X[nd, 8, KY, KX]; for a subclass-k cell at
 lattice position (iy, ix) its geometric slot-s neighbour is the
@@ -22,11 +23,12 @@ import numpy as np
 import torch
 
 from ..kernels.plane_spmv import plane_spmv
-from .block_ell import inv3x3
+from .block_ell import BlockEllMatrix, _structured_gather, inv3x3
 
 __all__ = [
     "StencilBlockEll",
     "stencil_plan",
+    "soa_index_maps",
     "jacobi_smoother",
     "stencil_deflation_preconditioner",
     "stencil_pcg",
@@ -59,6 +61,24 @@ def stencil_plan(order) -> Tuple[Tuple[Tuple[int, int, int], ...], ...]:
     return tuple(plan)
 
 
+class _SoAMaps(NamedTuple):
+    to_soa: np.ndarray    # [nd*NC] flat gather: soa_flat = x[to_soa]
+    from_soa: np.ndarray  # [NC*nd] flat gather: x = soa_flat[from_soa]
+
+
+def soa_index_maps(order, nd: int) -> _SoAMaps:
+    """Index maps between the flat cell-major vector in the ORIGINAL cell
+    order and the SoA [nd, 8, KY, KX] layout (flattened)."""
+    NC = order.num_cells
+    inv = np.asarray(order.inv)   # new -> old
+    perm = np.asarray(order.perm)  # old -> new
+    # soa position (j, new) <- old flat index inv[new]*nd + j
+    to_soa = (inv[None, :] * nd + np.arange(nd)[:, None]).reshape(-1)
+    # old flat (old, j) <- soa flat j*NC + perm[old]
+    from_soa = (np.arange(nd)[None, :] * NC + perm[:, None]).reshape(-1)
+    return _SoAMaps(to_soa.astype(np.int32), from_soa.astype(np.int32))
+
+
 class StencilBlockEll:
     """planes [4, nd, nd, 8, KY, KX] (slot 0 = self); plan: 8x3 static
     (k_src, dy, dx) lattice shifts.  ``spmv(planes, X, plan)`` applies the
@@ -81,6 +101,18 @@ class StencilBlockEll:
     @property
     def sym(self) -> bool:
         return self.sym_planes is not None
+
+    @classmethod
+    def from_block_ell(cls, A: BlockEllMatrix, order) -> "StencilBlockEll":
+        """The plane layout of a BlockEllMatrix on a structured grid: one
+        gather of the block array (set-up, ~1 pass over the operator)."""
+        cell_idx, slot_idx = _structured_gather(A, order)
+        dev = A.blocks.device
+        blocks = A.blocks[torch.as_tensor(cell_idx).to(dev), torch.as_tensor(slot_idx).to(dev)]
+        KY, KX = order.lattice
+        nd = A.nd
+        planes = blocks.reshape(8, KY, KX, 4, nd, nd).permute(3, 4, 5, 0, 1, 2).contiguous()
+        return cls(planes, stencil_plan(order))
 
     @property
     def nd(self) -> int:

@@ -1,10 +1,12 @@
 """Quadrature rules (host numpy).
 
 Counterpart of ``dune_hdd_tpu/ops/quadrature.py``: the dune-geometry
-conical-product triangle rule and Gauss-Legendre edge rule.
+conical-product triangle rule (and the Dunavant / Duffy family), the
+tensor-Gauss quad rule and the Gauss-Legendre edge rule.
 
 Reference-element conventions:
 * triangle: {(x,y) : x,y >= 0, x+y <= 1}, weights sum to 1/2
+* quad: [0,1]^2, weights sum to 1
 * edge: [0,1], weights sum to 1
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["tri_rule", "edge_rule", "gauss_jacobi_10"]
+__all__ = ["tri_rule", "quad_rule", "edge_rule", "gauss_jacobi_10"]
 
 
 @lru_cache(maxsize=None)
@@ -23,6 +25,36 @@ def edge_rule(order: int) -> Tuple[np.ndarray, np.ndarray]:
     n = max(1, (int(order) + 2) // 2)
     x, w = np.polynomial.legendre.leggauss(n)
     return 0.5 * (x + 1.0), 0.5 * w
+
+
+@lru_cache(maxsize=None)
+def quad_rule(order: int) -> Tuple[np.ndarray, np.ndarray]:
+    x, w = edge_rule(order)
+    X, Y = np.meshgrid(x, x, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=-1)
+    return pts, np.outer(w, w).ravel()
+
+
+_DUNAVANT = {
+    1: [(1 / 3, 1 / 3, 1.0)],
+    2: [(1 / 6, 1 / 6, 1 / 3), (2 / 3, 1 / 6, 1 / 3), (1 / 6, 2 / 3, 1 / 3)],
+    3: [(1 / 3, 1 / 3, -27 / 48), (0.6, 0.2, 25 / 48), (0.2, 0.6, 25 / 48),
+        (0.2, 0.2, 25 / 48)],
+}
+
+
+def _dunavant_orbits(centre, orbits):
+    pts = [] if centre is None else [centre]
+    for c, w in orbits:
+        pts += [(c, c, w), (1 - 2 * c, c, w), (c, 1 - 2 * c, w)]
+    return pts
+
+
+_DUNAVANT[4] = _dunavant_orbits(None, ((0.445948490915965, 0.223381589678011),
+                                       (0.091576213509771, 0.109951743655322)))
+_DUNAVANT[5] = _dunavant_orbits((1 / 3, 1 / 3, 0.225),
+                                ((0.470142064105115, 0.132394152788506),
+                                 (0.101286507323456, 0.125939180544827)))
 
 
 @lru_cache(maxsize=None)
@@ -43,11 +75,25 @@ def gauss_jacobi_10(n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @lru_cache(maxsize=None)
-def tri_rule(order: int) -> Tuple[np.ndarray, np.ndarray]:
-    """dune-geometry SimplexQuadratureRule<ct,2>: conical product with
-    n = order//2 + 1 points per direction, Gauss-Jacobi(1,0) in x and
-    Gauss-Legendre in y.  Exact for total degree <= 2n-1 >= order."""
-    n = max(0, int(order)) // 2 + 1
+def tri_rule(order: int, family: str = "dune") -> Tuple[np.ndarray, np.ndarray]:
+    """``family="dune"``: dune-geometry SimplexQuadratureRule<ct,2>, a conical
+    product with n = order//2 + 1 points per direction, Gauss-Jacobi(1,0) in
+    x and Gauss-Legendre in y, exact for total degree <= 2n-1 >= order.
+    Any other family: Dunavant up to order 5, a Duffy-collapsed tensor Gauss
+    rule above."""
+    order = max(0, int(order))
+    if family != "dune":
+        order = max(1, order)
+        if order in _DUNAVANT:
+            data = np.asarray(_DUNAVANT[order], dtype=float)
+            return data[:, :2].copy(), 0.5 * data[:, 2].copy()
+        n = (order + 4) // 2
+        x, w = np.polynomial.legendre.leggauss(n)
+        x, w = 0.5 * (x + 1.0), 0.5 * w
+        U, V = np.meshgrid(x, x, indexing="ij")
+        pts = np.stack([U.ravel(), (V * (1.0 - U)).ravel()], axis=-1)
+        return pts, (np.outer(w, w) * (1.0 - U)).ravel()
+    n = order // 2 + 1
     xj, wj = gauss_jacobi_10(n)
     yl, wl = np.polynomial.legendre.leggauss(n)
     yl = 0.5 * (yl + 1.0)

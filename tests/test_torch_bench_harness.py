@@ -101,7 +101,7 @@ def test_slice_matches_reference(bisections, u_bar):
     ref = _reference_solve(bisections)
     assert ref["residual"] <= 1e-6  # the step-by-step call is the reference bench's path
 
-    r = run_spe10_bench(bisections=bisections, repeats=1)
+    r = run_spe10_bench(bisections=bisections, repeats=1, device="cpu")
     print(f"bisections {bisections}: inner iterations port {r['inner_iterations']} "
           f"({r['outer_sweeps']} sweeps), reference {ref['iterations']}; residual "
           f"port {r['residual']:.3e}, reference {res_j:.3e}")
@@ -133,7 +133,7 @@ def test_three_level_slice_matches_reference():
     step, at the bars of ``test_slice_matches_reference`` at this size."""
     ref = _reference_solve(4, macro=(25, 5), mid=(100, 20))
     assert ref["residual"] <= 1e-6
-    bench = build_spe10_bench(4, macro=(25, 5))
+    bench = build_spe10_bench(4, macro=(25, 5), device="cpu")
     assert bench.mid_shape == (100, 20)
     sol = bench.fn(bench.field)
     print(f"three-level: inner iterations port {sol.iterations} ({sol.sweeps} sweeps), "
@@ -179,7 +179,7 @@ def test_mid_level_selection_matches_reference():
     assert _select_mid_level(640, 3200, (100, 20)) == [(1600, 320), (400, 80)]
     assert _select_mid_level(40, 200, (25, 5)) == (100, 20)
     with pytest.raises(ValueError):
-        build_spe10_bench(bisections=3)
+        build_spe10_bench(bisections=3, device="cpu")
 
 
 @pytest.mark.parametrize("bisections", range(2, 13, 2))

@@ -64,7 +64,7 @@ def _assembled_planes(dtype):
     """The bench's unscaled operator at BISECTIONS, built by the port."""
     from dune_hdd_tpu_torch.bench_harness import build_spe10_bench
 
-    bench = build_spe10_bench(BISECTIONS)
+    bench = build_spe10_bench(BISECTIONS, device="cpu")
     S, _, _ = bench.assemble(bench.field)
     return S.planes.to(dtype), S.plan
 

@@ -52,7 +52,7 @@ def _jx_f32():
 @pytest.fixture(scope="module")
 def system():
     """(planes, B, s, plan) of the bench's scaled system, as numpy."""
-    bench = build_spe10_bench(BISECTIONS)
+    bench = build_spe10_bench(BISECTIONS, device="cpu")
     S, B, s = bench.assemble(bench.field)
     return S.planes.numpy(), B.numpy(), s.numpy(), S.plan
 

@@ -63,7 +63,7 @@ def _jx_f32():
 
 
 def _scaled_system(bisections):
-    bench = build_spe10_bench(bisections)
+    bench = build_spe10_bench(bisections, device="cpu")
     S, B, s = bench.assemble(bench.field)
     return S.planes.numpy(), B.numpy(), s.numpy(), S.plan
 

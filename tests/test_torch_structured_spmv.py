@@ -116,7 +116,7 @@ def test_flat_plain_matches_plane_plain_on_assembled_operator():
     subclass-major lattice order are the structured numbering."""
     from dune_hdd_tpu_torch.bench_harness import build_spe10_bench
 
-    bench = build_spe10_bench(2)
+    bench = build_spe10_bench(2, device="cpu")
     S, B, _ = bench.assemble(bench.field)
     nc = S.num_cells
     A = StructuredBlockEll(None, S.planes.reshape(4, 3, 3, nc).permute(3, 0, 1, 2),
