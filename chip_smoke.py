@@ -5,7 +5,8 @@ SWIPDG assemble-and-solve bench at 768k, 3.07M and 12.29M DoF (6, 8 and 10
 bisections) through the plane SpMV kernel, drives the structured SpMV and
 the probe through their own entry points, times every kernel beside its
 plain version and one library call that computes the same function, then
-runs the ESV2007 EOC study (levels 0-6, up to 1.57M DoF) and 8 online
+runs the ESV2007 EOC study with its a-posteriori estimators (levels 0-6, up
+to 1.57M DoF), the CG-P1 EOC study on the same hierarchy, and 8 online
 thermalblock solves at 1.57M DoF through the general parametric SWIPDG
 path.  Exits non-zero if any phase fails or there is no card.
 
@@ -13,15 +14,20 @@ path.  Exits non-zero if any phase fails or there is no card.
 
 Phases (one line of output each, each with its seconds): device, build,
 kernel vs plain (plane SpMV at 6 and 2 bisections; structured SpMV on the
-768k-DoF operator and on random blocks; probe), main path at 6 bisections,
-structured path, probe path, kernel path vs plain path at 4 bisections,
-kernel timing at 768k DoF, main path at 8 bisections with the symmetric
-operator's checks, main path at 10 bisections with the plane SpMV checked
-against its plain version and timed on the symmetric 12.29M-DoF planes, the
-ESV2007 study (stencil_cg with the 4x4 macro: the table at levels 0-3, EOC
-at 4-6) and the thermalblock online solves (block_cg through make_solve_fn,
-each rechecked in float64, and one stencil_cg solve).  Then a JSON line of
-the kernels, the card's name and power limit, and last {"ok": true, ...}.
+768k-DoF operator and on random blocks; probe bitwise at three sizes and on
+offset views, both of its paths), main path at 6 bisections, structured
+path, probe path, kernel path vs plain path at 4 bisections, kernel timing
+at 768k DoF (the probe at [64, 128] and 2^24, and its scalar path), main
+path at 8 bisections with the symmetric operator's checks, main path at 10
+bisections with the plane SpMV checked against its plain version and timed
+on the symmetric 12.29M-DoF planes, the ESV2007 study (stencil_cg with the
+4x4 macro and the six ESV2007 estimators: the table of errors, estimates
+and efficiencies at levels 0-3, EOC at 4-6, RT0 local conservation at level
+6), the CG study (Jacobi CG, EOC from level 2 on) and the thermalblock
+online solves (block_cg through make_solve_fn, each rechecked in float64,
+one stencil_cg solve, RT0 local conservation and eta_ESV2007).  Then a
+JSON line of the kernels, the card's name and power limit, and last
+{"ok": true, ...}.
 """
 import json
 import statistics
@@ -156,19 +162,35 @@ def phase_structured_vs_plain(dev, bench, S, B):
 
 
 def phase_probe_vs_plain(dev):
+    """The probe bitwise against 2x + y at [64, 128], 2^24 and 2^24 + 3, and
+    on views whose offsets take the float4 path with a scalar head (x[1:]
+    with y[1:]) or the scalar path (x[1:] beside y[:-1] or y[3:])."""
     from dune_hdd_tpu_torch.kernels.probe import probe, probe_reference
 
     rng = np.random.default_rng(13)
+    n = 1 << 24
+
+    def normal(size):
+        return torch.as_tensor(rng.standard_normal(size, dtype=np.float32)).to(dev)
+
+    cases = [(repr(shape), normal(shape), normal(shape)) for shape in ((64, 128), n, n + 3)]
+    xb, yb = normal(n + 3), normal(n + 3)
+    cases += [("x[1:] y[1:]", xb[1:n + 1], yb[1:n + 1]), ("x[1:] y[:-1]", xb[1:n + 1], yb[:n]),
+              ("x[1:] y[3:]", xb[1:n + 1], yb[3:n + 3])]
+    launches, scalar = probe.launches, probe.scalar_launches
     err = 0.0
-    for shape in ((64, 128), (1 << 24) + 3):
-        x, y = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).to(dev)
-                for _ in range(2))
+    for label, x, y in cases:
         o, o_ref = probe(x, y), probe_reference(x, y)
-        err = max(err, rel_check("probe vs 2x + y", o, o_ref, 0.0))
+        err = max(err, rel_check(f"probe vs 2x + y ({label})", o, o_ref, 0.0))
         if not torch.equal(o, o_ref):
-            raise AssertionError(f"probe differs from 2x + y bitwise at {shape}")
-    log("kernel_vs_plain", kernel="probe", shapes=repr([(64, 128), (1 << 24) + 3]),
-        max_abs_err=err, bitwise_equal=True)
+            raise AssertionError(f"probe differs from 2x + y bitwise ({label})")
+    scalar = probe.scalar_launches - scalar
+    vector = probe.launches - launches - scalar
+    if (vector, scalar) != (4, 2):
+        raise AssertionError(f"probe paths: {vector} vector and {scalar} scalar launches, "
+                             "expected 4 and 2")
+    log("kernel_vs_plain", kernel="probe", cases=repr([c[0] for c in cases]),
+        max_abs_err=err, bitwise_equal=True, vector_launches=vector, scalar_launches=scalar)
     return err
 
 
@@ -392,7 +414,16 @@ def phase_timing_768k(dev, S, B, A, b_flat):
         pr[shape] = timed("probe", repr(shape), lambda: probe(x, y), lambda: probe_reference(x, y),
                           lambda: torch.add(y, x, alpha=2), 3 * x.numel() * 4, 2 * x.numel(),
                           torch.float32)
-    return st, pr[(64, 128)], plane_err
+    # the scalar path: x and y at different offsets modulo 16 bytes
+    xs, ys = (torch.rand((1 << 24) + 1, generator=gen).to(dev) for _ in range(2))
+    x, y = xs[1:], ys[:-1]
+    timed("probe", "2^24 scalar path (x[1:], y[:-1])", lambda: probe(x, y),
+          lambda: probe_reference(x, y), lambda: torch.add(y, x, alpha=2), 3 * x.numel() * 4,
+          2 * x.numel(), torch.float32)
+    # the kernels line: the 2^24 times, the [64, 128] ones beside them
+    probe_row = dict(pr[1 << 24], **{f"{k}_64x128": v for k, v in pr[(64, 128)].items()
+                                      if k != "bound_by"})
+    return st, probe_row, plane_err
 
 
 def phase_symmetric_checks(S):
@@ -432,21 +463,62 @@ def check_plane_spmv_at(system, what):
 
 
 ESV_LEVELS = 6  # 384 to 1,572,864 DoF
+ESV_ESTIMATORS = ("eta_NC_ESV2007", "eta_R_ESV2007", "eta_R_ESV2007_*", "eta_DF_ESV2007",
+                  "eta_ESV2007", "eta_ESV2007_alt")
+
+
+def rt0_conservation(d, u, mu=None, **reconstruction):
+    """max_T |div t_h - P0 f| / |P0 f| of the RT0 reconstruction of u's
+    SWIPDG flux (``reconstruction``: the keywords that make it the assembled
+    scheme's flux), and the reconstruction's seconds."""
+    from dune_hdd_tpu_torch.estimators import rt0_divergence, rt0_flux_reconstruction
+    from dune_hdd_tpu_torch.functions.base import freeze_function
+    from dune_hdd_tpu_torch.ops.assembly import cell_quadrature
+
+    grid, problem = d.space.grid, (d.problem.with_mu(mu) if mu is not None else d.problem)
+    lam, kap, force, g_d, g_n = (freeze_function(getattr(problem, name)) for name in (
+        "diffusion_factor", "diffusion_tensor", "force", "dirichlet", "neumann"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flux = rt0_flux_reconstruction(d.space, u, lam, kap,
+                                   np.nonzero(d.boundary_info.dirichlet_faces)[0],
+                                   np.nonzero(d.boundary_info.neumann_faces)[0], g_d, g_n,
+                                   **reconstruction)
+    div = rt0_divergence(grid, flux)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    qp, qw = cell_quadrature(grid, 6, u.device)
+    p0f = torch.sum(qw * force(qp), dim=1) / d.space.tensor(grid.cell_volumes)
+    return ((div - p0f).abs() / p0f.abs()).max().item(), seconds
 
 
 def phase_esv2007_study(dev):
     """The ESV2007 ALU-conforming SWIPDG EOC study through EocStudy with the
-    stencil_cg option (plane_spmv in float64), levels 0-6; levels 0-3 against
-    the published table, EOC above 1.9 (L2) and 0.95 (H1_semi) up to the
-    last level.  The launch count is set to 0 just before and read just
-    after.  Returns (launches, the kernel's max abs error at level 6)."""
+    stencil_cg option (plane_spmv in float64) and the six ESV2007
+    estimators, levels 0-6; levels 0-3 against the published table (errors,
+    estimators, efficiency), EOC above 1.9 (L2) and 0.95 (H1_semi, eta_NC,
+    eta_DF, eta_ESV2007) up to the last level; RT0 local conservation at
+    level 6.  The launch count is set to 0 just before and read just after.
+    Returns (launches, the kernel's max abs error at level 6, the test case)."""
     from types import SimpleNamespace
 
     from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.estimators import SWIPDGEstimators
     from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
-    from dune_hdd_tpu_torch.studies import EocStudy, check_eoc_study_for_success
+    from dune_hdd_tpu_torch.studies import (
+        EocStudy, check_eoc_study_for_success, expected_results)
     from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase
     from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
+
+    estimator_seconds = {}
+
+    def estimate_fn(disc, u, type_, level):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eta = SWIPDGEstimators.estimate(disc.space, disc.boundary_info, disc.problem, u, type_)
+        torch.cuda.synchronize()
+        estimator_seconds.setdefault(level, {})[type_] = time.perf_counter() - t0
+        return eta
 
     max_iter = 50000
     options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
@@ -456,7 +528,8 @@ def phase_esv2007_study(dev):
     t0 = time.perf_counter()
     tc = ESV2007TestCase(num_refinements=ESV_LEVELS)
     hierarchy_s = time.perf_counter() - t0
-    study = EocStudy(tc, SWIPDGDiscretization, solver_options=options, device=dev)
+    study = EocStudy(tc, SWIPDGDiscretization, estimator_types=ESV_ESTIMATORS,
+                     estimate_fn=estimate_fn, solver_options=options, device=dev)
     results = study.run(verbose=False)
     launches = plane_spmv.launches
     host = timings()
@@ -471,22 +544,65 @@ def phase_esv2007_study(dev):
             **{k: f"{results[k][r]:.6e}" for k in results},
             iterations=info["iterations"], time_to_solution=f"{study.time_to_solution[r]:.3f}",
             assembly_seconds=f"{info['assembly_seconds']:.3f}",
-            solve_seconds=f"{info['solve_seconds']:.3f}")
+            solve_seconds=f"{info['solve_seconds']:.3f}",
+            estimator_seconds=f"{sum(estimator_seconds[r].values()):.3f}",
+            estimator_seconds_by_type=repr({k: round(v, 4)
+                                            for k, v in estimator_seconds[r].items()}))
         if not (info["type"] == "stencil_cg" and 0 < info["iterations"] < max_iter):
             raise AssertionError(f"level {r}: {info}")
     check_eoc_study_for_success(SimpleNamespace(results={k: v[:4] for k, v in results.items()}),
                                 "ESV2007", "alu_conforming", 1)
-    eoc_l2, eoc_h1 = study.eoc("L2"), study.eoc("H1_semi")
-    if not (min(eoc_l2[3:]) > 1.9 and min(eoc_h1[3:]) > 0.95):
-        raise AssertionError(f"EOC L2 {eoc_l2}, H1_semi {eoc_h1}")
+    eff = [e / h for e, h in zip(results["eta_ESV2007"][:4], results["H1_semi"])]
+    eff_expected = expected_results("ESV2007", "alu_conforming", 1, "eff_ESV2007")
+    if not np.allclose(eff, eff_expected, rtol=1e-2, atol=0):
+        raise AssertionError(f"eff_ESV2007 {eff} != {eff_expected} (rel 1e-2)")
+    eocs = {k: study.eoc(k) for k in ("L2", "H1_semi", "eta_NC_ESV2007", "eta_DF_ESV2007",
+                                      "eta_ESV2007")}
+    if not (min(eocs["L2"][3:]) > 1.9
+            and all(min(v[3:]) > 0.95 for k, v in eocs.items() if k != "L2")):
+        raise AssertionError(f"EOC {eocs}")
     if launches <= 0:
         raise AssertionError("the study did not launch plane_spmv")
-    err = check_plane_spmv_at(study.discretizations[-1].stencil_system(),
-                              f"ESV2007 level {ESV_LEVELS}")
-    log("esv2007_eoc", table_levels="0-3 ok", eoc_L2=repr([round(e, 4) for e in eoc_l2]),
-        eoc_H1_semi=repr([round(e, 4) for e in eoc_h1]), plane_spmv_f64_max_abs_err=f"{err:.3e}",
-        card=repr(card()))
-    return launches, err
+    d, u = study.discretizations[-1], study.solutions[-1]
+    conservation, rt0_seconds = rt0_conservation(d, u)
+    if not conservation <= 1e-5:
+        raise AssertionError(f"level {ESV_LEVELS}: div t_h != P0 f ({conservation:.3e})")
+    err = check_plane_spmv_at(d.stencil_system(), f"ESV2007 level {ESV_LEVELS}")
+    log("esv2007_eoc", table_levels="0-3 ok (errors, estimators)",
+        eff_ESV2007=repr([round(e, 4) for e in eff]),
+        **{f"eoc_{k}": repr([round(e, 4) for e in v]) for k, v in eocs.items()},
+        rt0_conservation_max_rel_dev=f"{conservation:.3e}",
+        rt0_reconstruction_seconds=f"{rt0_seconds:.3f}",
+        plane_spmv_f64_max_abs_err=f"{err:.3e}", card=repr(card()))
+    return launches, err, tc
+
+
+def phase_esv2007_cg(dev, tc):
+    """The CG-P1 EOC study on the same ESV2007 hierarchy, levels 0-6 (up to
+    263k vertex DoF), Jacobi CG to 1e-12: EOC above 1.85 (L2) and 0.95
+    (H1_semi) from level 2 on."""
+    from dune_hdd_tpu_torch.discretizations import CGDiscretization
+    from dune_hdd_tpu_torch.studies import EocStudy
+
+    max_iter = 100000
+    options = {"type": "cg.jacobi", "precision": 1e-12, "max_iter": max_iter}
+    torch.cuda.reset_peak_memory_stats()
+    study = EocStudy(tc, CGDiscretization, solver_options=options, device=dev)
+    results = study.run(verbose=False)
+    for r, info in enumerate(study.level_info):
+        log("esv2007_cg_level", level=r, dofs=info["num_dofs"],
+            **{k: f"{results[k][r]:.6e}" for k in results},
+            iterations=info["iterations"], time_to_solution=f"{study.time_to_solution[r]:.3f}",
+            assembly_seconds=f"{info['assembly_seconds']:.3f}",
+            solve_seconds=f"{info['solve_seconds']:.3f}")
+        if not (info["type"] == "cg.jacobi" and 0 < info["iterations"] < max_iter):
+            raise AssertionError(f"level {r}: {info}")
+    eoc_l2, eoc_h1 = study.eoc("L2"), study.eoc("H1_semi")
+    if not (min(eoc_l2[2:]) >= 1.85 and min(eoc_h1[2:]) >= 0.95):
+        raise AssertionError(f"CG EOC L2 {eoc_l2}, H1_semi {eoc_h1}")
+    log("esv2007_cg_eoc", gated_from_level=2, eoc_L2=repr([round(e, 4) for e in eoc_l2]),
+        eoc_H1_semi=repr([round(e, 4) for e in eoc_h1]),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
 
 
 def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
@@ -549,7 +665,40 @@ def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
     log("thermalblock_stencil_cg", iterations=info["iterations"], seconds=f"{seconds:.3f}",
         rel_max_diff_vs_block_cg=f"{diff:.3e}", launches=launches, peak_gb=f"{peak:.2f}",
         plane_spmv_f64_max_abs_err=f"{err:.3e}", card=repr(card()))
+    phase_thermalblock_estimators(d, mus[0], first)
     return launches, err
+
+
+def phase_thermalblock_estimators(d, mu, u):
+    """RT0 local conservation and eta_ESV2007 (mu_hat = 1) on the 1.57M-DoF
+    thermalblock at mu.  The 2x2 thermalblock has no affine part, so the
+    discretization runs the penalty_mu scheme: its assembled flux is the
+    frozen diffusion's with the scheme's fixed weights (``weight_diffusion``),
+    and that reconstruction must be conservative; the per-component
+    reconstruction="scheme" (the reference scheme's flux) is logged beside
+    it, not gated."""
+    from dune_hdd_tpu_torch.estimators import SWIPDGEstimators, scheme_flux_parts
+
+    if d.scheme != "penalty_mu":
+        raise AssertionError(f"thermalblock scheme {d.scheme}, expected penalty_mu")
+    wlam, wkap = d._weight_diffusion
+    conservation, rt0_seconds = rt0_conservation(d, u, mu, weight_lam_fn=wlam, weight_kap_fn=wkap)
+    if not conservation <= 1e-5:
+        raise AssertionError(f"thermalblock: div t_h != P0 f ({conservation:.3e})")
+    other, _ = rt0_conservation(d, u, mu, flux_parts=scheme_flux_parts(d.problem, mu))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eta = SWIPDGEstimators.estimate(d.space, d.boundary_info, d.problem, u, "eta_ESV2007", mu=mu,
+                                    mu_hat=np.ones(4), weight_diffusion=d._weight_diffusion)
+    seconds = time.perf_counter() - t0
+    if not (np.isfinite(eta) and eta > 0):
+        raise AssertionError(f"thermalblock eta_ESV2007 = {eta}")
+    log("thermalblock_estimators", dofs=d.space.num_dofs, mu=repr([round(float(m), 6) for m in mu]),
+        rt0_conservation_max_rel_dev=f"{conservation:.3e}",
+        rt0_reconstruction_seconds=f"{rt0_seconds:.3f}",
+        per_component_reconstruction_max_rel_dev=f"{other:.3e}",
+        eta_ESV2007_mu_hat_1=f"{eta:.6e}", eta_ESV2007_seconds=f"{seconds:.3f}",
+        card=repr(card()))
 
 
 def count_device_ops(fn):
@@ -621,9 +770,12 @@ def main():
     del S10, B10
     torch.cuda.empty_cache()
 
-    n, err = phase_esv2007_study(dev)
+    n, err, tc = phase_esv2007_study(dev)
     launches["plane_spmv"] += n
     plane_err = max(plane_err, err)
+    torch.cuda.empty_cache()
+    phase_esv2007_cg(dev, tc)
+    del tc
     torch.cuda.empty_cache()
     n, err = phase_thermalblock_online(dev)
     launches["plane_spmv"] += n

@@ -1,4 +1,5 @@
 from .base import StationaryDiscretization
+from .cg import CGDiscretization
 from .swipdg import SWIPDGDiscretization
 
-__all__ = ["StationaryDiscretization", "SWIPDGDiscretization"]
+__all__ = ["StationaryDiscretization", "CGDiscretization", "SWIPDGDiscretization"]

@@ -144,8 +144,9 @@ class StationaryDiscretization:
             op = op.with_constrained_cols(mask, keep_unit_diag=True)
             rhs = rhs.clone()
             rhs[0] = 0.0
-        u = la_solve(op, rhs, options)
-        self.last_solve_info = {"type": dict(options or {}).get("type", solver_types()[0])}
+        info: Dict = {}
+        u = la_solve(op, rhs, options, info=info)
+        self.last_solve_info = {"type": dict(options or {}).get("type", solver_types()[0]), **info}
         if self.purely_neumann:
             u = u - torch.mean(u)
         return u

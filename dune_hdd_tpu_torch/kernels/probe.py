@@ -4,6 +4,13 @@ The counterpart of the reference's Pallas compile probe
 (``scripts/pallas_minimal_repro.py``), kept as the smallest kernel of the
 build route.  CUDA tensors go to ``csrc/probe.cu``; CPU tensors go to
 ``probe_reference``.  The two agree bitwise.
+
+The kernel moves float4s when x, y and o lie at the same offset modulo 16
+bytes, with a scalar head and tail, and runs the whole range scalar
+otherwise.  When x and y share an offset, ``probe`` allocates o at that
+offset too, so only inputs at different offsets (``x[1:]`` beside a fresh
+``y``) take the scalar path; those launches are counted again in
+``probe.scalar_launches``.
 """
 from __future__ import annotations
 
@@ -25,15 +32,25 @@ def probe_reference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def _kernel():
     fn = build.load("probe").probe_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _output_like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """An empty o; at x's offset modulo 16 bytes when y shares it."""
+    shift = x.data_ptr() % 16
+    if shift == 0 or y.data_ptr() % 16 != shift:
+        return torch.empty_like(x)
+    pad = shift // x.element_size()  # the allocator's blocks start 16-byte aligned
+    return torch.empty(x.numel() + pad, dtype=x.dtype, device=x.device)[pad:].view(x.shape)
+
+
 def probe(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """2 x + y for float32 tensors of one shape and device.  On CUDA tensors
-    this launches the kernel (counted in ``probe.launches``); on CPU tensors
-    it is ``probe_reference``."""
+    this launches the kernel (counted in ``probe.launches``, and in
+    ``probe.scalar_launches`` when the offsets force the scalar path); on CPU
+    tensors it is ``probe_reference``."""
     if x.shape != y.shape:
         raise ValueError(f"shapes differ: {tuple(x.shape)} and {tuple(y.shape)}")
     if x.dtype != torch.float32 or y.dtype != torch.float32:
@@ -46,13 +63,20 @@ def probe(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return probe_reference(x, y)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    o = torch.empty_like(x)
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    o = _output_like(x, y)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), y.data_ptr(), o.data_ptr(), x.numel(), x.device.index, stream)
+    vector_path = ctypes.c_int(0)
+    err = _kernel()(x.data_ptr(), y.data_ptr(), o.data_ptr(), x.numel(), x.device.index, stream,
+                    ctypes.byref(vector_path))
     if err != 0:
         raise RuntimeError(f"probe launch failed: cudaError {err}")
     probe.launches += 1
+    if not vector_path.value:
+        probe.scalar_launches += 1
     return o
 
 
 probe.launches = 0
+probe.scalar_launches = 0

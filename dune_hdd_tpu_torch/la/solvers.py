@@ -150,8 +150,9 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
 
 def solve(matrix: SparseMatrix, rhs: torch.Tensor, options: Optional[Dict] = None,
-          x0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Solve A x = b according to an options dict."""
+          x0: Optional[torch.Tensor] = None, info: Optional[Dict] = None) -> torch.Tensor:
+    """Solve A x = b according to an options dict; a Krylov solver writes
+    its iteration count into ``info`` when one is given."""
     opts = solver_options() if options is None else dict(options)
     type_ = opts.get("type", solver_types()[0])
     base, _, precond = type_.partition(".")
@@ -173,9 +174,11 @@ def solve(matrix: SparseMatrix, rhs: torch.Tensor, options: Optional[Dict] = Non
         raise NotImplementedError(GMRES_NOT_PORTED)
     M = make_preconditioner(matrix, precond) if precond else None
     if base == "cg":
-        x, _ = cg(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter, M=M)
+        x, iterations = cg(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter, M=M)
     elif base == "bicgstab":
-        x, _ = bicgstab(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter, M=M)
+        x, iterations = bicgstab(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter, M=M)
     else:
         raise ValueError(f"unknown solver type {type_!r}")
+    if info is not None:
+        info["iterations"] = int(iterations)
     return x

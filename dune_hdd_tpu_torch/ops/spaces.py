@@ -60,11 +60,14 @@ def tri_shape_grads(cellverts):
 
 @dataclass(frozen=True, eq=False)  # identity hash (holds numpy-array members)
 class Space:
+    """``device``: the card unless the caller asks for the CPU (raises
+    without a card)."""
+
     grid: Grid
     continuous: bool  # CG (vertex dofs) vs DG (per-cell dofs)
     order: int = 1
     basis: str = "nodal"
-    device: torch.device = torch.device("cpu")
+    device: torch.device = "cuda"
     dtype: torch.dtype = torch.float64
 
     def __post_init__(self):
@@ -74,6 +77,7 @@ class Space:
             raise NotImplementedError(NOT_PORTED.format(what=f"order {self.order}"))
         if self.basis != "nodal":
             raise NotImplementedError(NOT_PORTED.format(what=f"the {self.basis!r} basis"))
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
     def shape_count(self) -> int:
@@ -127,11 +131,10 @@ class Space:
 
 
 def cg_space(grid: Grid, order: int = 1, device="cuda", dtype=torch.float64) -> Space:
-    return Space(grid, continuous=True, order=order, device=resolve_device(device), dtype=dtype)
+    return Space(grid, continuous=True, order=order, device=device, dtype=dtype)
 
 
 def dg_space(grid: Grid, order: int = 1, basis: str = "nodal", device="cuda",
              dtype=torch.float64) -> Space:
     """DG space (nodal P1 on triangles) with its tensors on ``device``."""
-    return Space(grid, continuous=False, order=order, basis=basis,
-                 device=resolve_device(device), dtype=dtype)
+    return Space(grid, continuous=False, order=order, basis=basis, device=device, dtype=dtype)

@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.utils.logging, dune_hdd_tpu_torch.discretizations\n"
         "import dune_hdd_tpu_torch.discretizations.cg, dune_hdd_tpu_torch.testcases.base\n"
         "import dune_hdd_tpu_torch.testcases.esv2007, dune_hdd_tpu_torch.studies\n"
+        "import dune_hdd_tpu_torch.estimators, dune_hdd_tpu_torch.estimators.swipdg\n"
+        "from dune_hdd_tpu_torch.discretizations.cg import CGDiscretization\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )

@@ -2,7 +2,9 @@
 (``scripts/pallas_minimal_repro.py``: ``o = 2x + y`` on [64, 128] float32).
 The script runs at import, so its kernel body is restated here and run in
 interpret mode; the plain version equals it bitwise (2x is exact).  The
-``cuda`` test holds the CUDA kernel bitwise to the plain version on the card
+``cuda`` tests hold the CUDA kernel bitwise to the plain version on the card,
+at sizes with a scalar tail and on views at every offset modulo 16 bytes,
+and count which path each launch took
 (``python -m pytest --noconftest -m cuda tests/test_torch_probe.py``)."""
 import numpy as np
 import pytest
@@ -57,11 +59,36 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 128), (1 << 20) + 3])
+@pytest.mark.parametrize("shape", [(64, 128), (1 << 20) + 3, (1 << 24) + 3, 1, 5])
 def test_kernel_matches_plain_bitwise_on_card(cuda_device, shape):
     x, y = (t.to(cuda_device) for t in _inputs(shape, 2))
-    before = probe.launches
+    before, scalar_before = probe.launches, probe.scalar_launches
     o = probe(x, y)
     torch.cuda.synchronize()
     assert probe.launches == before + 1
+    assert probe.scalar_launches == scalar_before  # fresh tensors are 16-byte aligned
     assert torch.equal(o, probe_reference(x, y))
+
+
+# (x offset, y offset) in floats, and whether the float4 path runs: equal
+# offsets take it (o is allocated at the same offset, the head is scalar),
+# different offsets take the scalar loop of the same kernel
+VIEWS = [((1, 1), True), ((2, 2), True), ((3, 3), True), ((1, 0), False), ((1, 3), False),
+         ((0, 2), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 5, 7])
+@pytest.mark.parametrize("offsets,vector", VIEWS, ids=lambda v: str(v))
+def test_misaligned_views_on_card(cuda_device, n, offsets, vector):
+    (ox, oy) = offsets
+    xb, yb = (t.to(cuda_device) for t in _inputs(n + 3, 3))
+    x, y = xb[ox:ox + n], yb[oy:oy + n]
+    before, scalar_before = probe.launches, probe.scalar_launches
+    o = probe(x, y)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert probe.scalar_launches == scalar_before + (0 if vector else 1)
+    assert torch.equal(o, probe_reference(x, y))
+    if vector:
+        assert o.data_ptr() % 16 == x.data_ptr() % 16
