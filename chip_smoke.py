@@ -6,7 +6,10 @@ bisections) through the plane SpMV kernel, drives the structured SpMV and
 the probe through their own entry points, times every kernel beside its
 plain version and one library call that computes the same function, then
 runs the ESV2007 EOC study with its a-posteriori estimators (levels 0-6, up
-to 1.57M DoF), the CG-P1 EOC study on the same hierarchy, and 8 online
+to 1.57M DoF), the CG-P1 EOC study on the same hierarchy, the BlockSWIPDG /
+OS2014 path (the published block table at four partitionings, [8 8 1] to
+1.57M DoF, the OS2014 parametric and SPE10 parametric block studies, the
+bench's block provenance check at 768k and 3.07M DoF), and 8 online
 thermalblock solves at 1.57M DoF through the general parametric SWIPDG
 path.  Exits non-zero if any phase fails or there is no card.
 
@@ -23,10 +26,15 @@ bisections with the plane SpMV checked against its plain version and timed
 on the symmetric 12.29M-DoF planes, the ESV2007 study (stencil_cg with the
 4x4 macro and the six ESV2007 estimators: the table of errors, estimates
 and efficiencies at levels 0-3, EOC at 4-6, RT0 local conservation at level
-6), the CG study (Jacobi CG, EOC from level 2 on) and the thermalblock
-online solves (block_cg through make_solve_fn, each rechecked in float64,
-one stencil_cg solve, RT0 local conservation and eta_ESV2007).  Then a
-JSON line of the kernels, the card's name and power limit, and last
+6), the CG study (Jacobi CG, EOC from level 2 on), the block ESV2007 table
+(stencil_cg at [1 1 1] ... [8 8 1], levels 0-3 against the published OS2014
+columns, [8 8 1] to level 6 with EOC and efficiency), the OS2014 parametric
+[4 4 1] study at four (mu, mu_bar, mu_hat) triples, the SPE10 parametric
+[20 4 1] study against its 384,000-DoF reference, the block provenance
+check (768k and 3.07M DoF) and the
+thermalblock online solves (block_cg through make_solve_fn, each rechecked
+in float64, one stencil_cg solve, RT0 local conservation and eta_ESV2007).
+Then a JSON line of the kernels, the card's name and power limit, and last
 {"ok": true, ...}.
 """
 import json
@@ -605,6 +613,285 @@ def phase_esv2007_cg(dev, tc):
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
 
 
+BLOCK_PARTITIONS = ((1, 1), (2, 2), (4, 4), (8, 8))
+BLOCK_TABLE_LEVELS = 4  # levels 0-3 against the published block table
+BLOCK_TYPES = ("eta_NC_OS2014", "eta_R_OS2014", "eta_DF_OS2014", "eta_DF_OS2014_*", "eta_OS2014")
+
+
+def partitioning(part) -> str:
+    return f"[{part[0]} {part[1]} 1]"
+
+
+def phase_block_esv2007_table(dev, tc):
+    """BlockSWIPDG on the ESV2007 hierarchy (``tc``'s levels): the
+    partitionings [1 1 1], [2 2 1], [4 4 1] and [8 8 1] at levels 0-3, each
+    level's global system solved by stencil_cg (plane_spmv in float64, the
+    4x4 macro, 1e-12) and the OS2014 estimators and eff_OS2014 held to the
+    published block table (6e-3).  The block solve is the global SWIPDG
+    solve, which the partitioning does not enter: each level is solved once,
+    through the first partitioning, and the others reuse that solution.
+    Then [8 8 1] at levels 4 to the last, with EOC(eta_OS2014) >= 0.95
+    from level 3 on and eff_OS2014 within 1e-2 of 1.80.  The launch count is
+    set to 0 just before and read just after.  Returns (launches, the
+    kernel's max abs error on the last level's operator)."""
+    from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
+    from dune_hdd_tpu_torch.estimators.block_swipdg import BlockSWIPDGEstimators
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.ops.norms import error_norms
+    from dune_hdd_tpu_torch.studies import eoc_rates, expected_results
+
+    max_iter = 50000
+    options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
+    torch.cuda.reset_peak_memory_stats()
+    plane_spmv.launches = 0
+    t_phase = time.perf_counter()
+
+    def build_and_solve(grid, part, u=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = BlockSWIPDGDiscretization(grid, tc.boundary_info(), tc.problem, num_partitions=part,
+                                      device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        info = {}
+        if u is None:
+            u = d.solve(options=options)
+            torch.cuda.synchronize()
+            info = d.last_solve_info
+            if not (info["type"] == "stencil_cg" and 0 < info["iterations"] < max_iter):
+                raise AssertionError(f"{partitioning(part)} level grid {grid}: {info}")
+        return d, u, dict(info, assembly_seconds=t1 - t0, solve_seconds=time.perf_counter() - t1)
+
+    def estimates(d, u):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = {t: BlockSWIPDGEstimators.estimate(d, u, t) for t in BLOCK_TYPES}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        vals["eff_OS2014"] = vals["eta_OS2014"] / error_norms(d.space, u,
+                                                              tc.exact_solution)["H1_semi"]
+        return vals, seconds
+
+    def log_level(part, level, d, vals, seconds, info):
+        log("block_esv2007_level", partitioning=repr(partitioning(part)), level=level,
+            dofs=d.space.num_dofs, subdomains=d.num_subdomains(),
+            **{k: f"{v:.6e}" for k, v in vals.items()}, iterations=info.get("iterations", "reused"),
+            assembly_seconds=f"{info['assembly_seconds']:.3f}",
+            solve_seconds=f"{info['solve_seconds']:.3f}", estimator_seconds=f"{seconds:.3f}")
+
+    table = {}
+    for level in range(BLOCK_TABLE_LEVELS):
+        grid, u = tc.level_grid(level), None
+        for part in BLOCK_PARTITIONS:
+            d, u, info = build_and_solve(grid, part, u)
+            vals, seconds = estimates(d, u)
+            table[part, level] = vals
+            log_level(part, level, d, vals, seconds, info)
+    for part in BLOCK_PARTITIONS:
+        for t in BLOCK_TYPES + ("eff_OS2014",):
+            got = [table[part, level][t] for level in range(BLOCK_TABLE_LEVELS)]
+            want = expected_results(f"ESV2007Multiscale.{partitioning(part)}", "alu_conforming",
+                                    1, t)
+            if not np.allclose(got, want, rtol=6e-3, atol=0):
+                raise AssertionError(f"{partitioning(part)} {t}: {got} != {want} (rel 6e-3)")
+
+    deep = (8, 8)
+    for level in range(BLOCK_TABLE_LEVELS, tc.num_refinements + 1):
+        d, u, info = build_and_solve(tc.level_grid(level), deep)
+        vals, seconds = estimates(d, u)
+        table[deep, level] = vals
+        log_level(deep, level, d, vals, seconds, info)
+        del u
+    launches = plane_spmv.launches
+    levels = range(BLOCK_TABLE_LEVELS - 1, tc.num_refinements + 1)
+    eoc = eoc_rates([table[deep, level]["eta_OS2014"] for level in levels])
+    eff = [table[deep, level]["eff_OS2014"] for level in levels]
+    if not (min(eoc) >= 0.95 and max(abs(e - 1.80) for e in eff) <= 1e-2):
+        raise AssertionError(f"[8 8 1]: EOC(eta_OS2014) {eoc}, eff_OS2014 {eff}")
+    if launches <= 0:
+        raise AssertionError("the block study did not launch plane_spmv")
+    err = check_plane_spmv_at(d._global.stencil_system(), f"block ESV2007 level {level} [8 8 1]")
+    log("block_esv2007_table", table_levels=f"0-{BLOCK_TABLE_LEVELS - 1} ok (6e-3)",
+        partitionings=repr([partitioning(p) for p in BLOCK_PARTITIONS]),
+        deep=f"[8 8 1] levels {BLOCK_TABLE_LEVELS}-{tc.num_refinements}",
+        eoc_eta_OS2014=repr([round(e, 4) for e in eoc]),
+        eff_OS2014=repr([round(e, 4) for e in eff]), launches=launches,
+        plane_spmv_f64_max_abs_err=f"{err:.3e}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        seconds=f"{time.perf_counter() - t_phase:.2f}", card=repr(card()))
+    return launches, err
+
+
+OS2014_TRIPLES = ((0.1, 0.1, 0.1), (1.0, 1.0, 0.1), (0.1, 0.1, 1.0), (1.0, 1.0, 1.0))
+# the published parametric block table at mu = 1, levels 0-1
+# (test/linearelliptic-block-swipdg-expectations_os2014_2daluconform.cxx)
+OS2014_PUBLISHED = {
+    (1.0, 1.0, 0.1): {"eta_DF_OS2014": [1.36, 1.33], "eta_DF_OS2014_*": [0.413, 0.205],
+                      "eta_OS2014": [4.71, 4.42], "eta_OS2014_*": [0.550, 0.271]},
+    (1.0, 1.0, 1.0): {"eta_DF_OS2014": [0.355, 0.176], "eta_DF_OS2014_*": [0.355, 0.176],
+                      "eta_OS2014": [0.774, 0.382], "eta_OS2014_*": [0.774, 0.382]},
+}
+
+
+def triple_key(triple) -> str:
+    mu, bar, hat = (f"{v:g}" for v in triple)
+    return f"mu{mu}_bar{bar}_hat{hat}"
+
+
+def phase_os2014_parametric(dev, levels=2):
+    """The OS2014 parametric [4 4 1] block study at levels 0-1 at the four
+    (mu, mu_bar, mu_hat) triples, one direct solve per level and distinct
+    mu: every recorded estimator within 2e-3 of the JAX-recorded values
+    (studies/expectations.py) and, at mu = 1, within 3.5e-3 of the
+    published ones."""
+    from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
+    from dune_hdd_tpu_torch.estimators.block_swipdg import BlockSWIPDGEstimators
+    from dune_hdd_tpu_torch.studies import expected_results
+    from dune_hdd_tpu_torch.testcases.os2014 import OS2014MultiscaleTestCase
+
+    t_phase = time.perf_counter()
+    types = ("eta_DF_OS2014", "eta_DF_OS2014_*", "eta_OS2014", "eta_OS2014_*")
+    discs, solutions = {}, {}
+    for triple in OS2014_TRIPLES:
+        mu, bar, hat = triple
+        tc = OS2014MultiscaleTestCase({"mu": mu, "mu_bar": bar, "mu_hat": hat,
+                                       "mu_minimizing": 0.1}, num_partitions=(4, 4),
+                                      num_refinements=levels - 1)
+        pars = tc.estimator_parameters()
+        values = {t: [] for t in types}
+        for level in range(levels):
+            if level not in discs:
+                discs[level] = BlockSWIPDGDiscretization(
+                    tc.level_grid(level), tc.boundary_info(), tc.problem, num_partitions=(4, 4),
+                    device=dev)
+            d = discs[level]
+            if (level, mu) not in solutions:
+                solutions[level, mu] = d.solve(tc.parameters["mu"], options={"type": "direct"})
+            for t in types:
+                values[t].append(BlockSWIPDGEstimators.estimate(d, solutions[level, mu], t, pars))
+        key = f"OS2014.block.[4 4 1].{triple_key(triple)}"
+        for t, got in values.items():
+            want = expected_results(key, "alu_conforming", 1, t)
+            if want is not None and not np.allclose(got, want, rtol=2e-3, atol=0):
+                raise AssertionError(f"{key} {t}: {got} != recorded {want} (rel 2e-3)")
+            published = OS2014_PUBLISHED.get(triple, {}).get(t)
+            if published is not None and not np.allclose(got, published, rtol=3.5e-3, atol=0):
+                raise AssertionError(f"{key} {t}: {got} != published {published} (rel 3.5e-3)")
+        log("os2014_parametric", triple=repr(triple), scheme=discs[0]._scheme,
+            dofs=repr([discs[r].space.num_dofs for r in range(levels)]),
+            **{t: repr([round(v, 6) for v in vals]) for t, vals in values.items()})
+    log("os2014_parametric_done", triples=len(OS2014_TRIPLES), solves=len(solutions),
+        seconds=f"{time.perf_counter() - t_phase:.2f}", card=repr(card()))
+
+
+def phase_spe10_parametric_block(dev, num_refinements=1):
+    """The SPE10 parametric [20 4 1] block study at reference scale
+    (tests/test_spe10_study.py): the 100 x 20 macro grid at levels 0-1
+    against the level-2 reference solution (384,000 DoF), solver direct,
+    through EocStudy once per distinct mu (0.1 and 1); the other two
+    triples evaluate their estimators on the same solutions.  energy,
+    eta_OS2014 and eta_OS2014_* within 2e-3 of the recorded values
+    (studies/expectations.py); eta_OS2014 == eta_OS2014_* at mu_hat = mu;
+    otherwise the plain estimate stagnates and the star one converges."""
+    from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
+    from dune_hdd_tpu_torch.estimators.block_swipdg import BlockSWIPDGEstimators
+    from dune_hdd_tpu_torch.studies import EocStudy, expected_results
+    from dune_hdd_tpu_torch.testcases.spe10 import Spe10ParametricBlockModel1TestCase
+
+    t_phase = time.perf_counter()
+    types = ("eta_OS2014", "eta_OS2014_*")
+    part = (20, 4)
+    studies = {}
+
+    def factory(grid, bi, problem, device):
+        return BlockSWIPDGDiscretization(grid, bi, problem, num_partitions=part, device=device)
+
+    for triple in sorted(OS2014_TRIPLES, key=lambda t: t[0] != t[2]):  # mu_hat = mu first
+        mu, bar, hat = triple
+        tc = Spe10ParametricBlockModel1TestCase(
+            {"mu": mu, "mu_bar": bar, "mu_hat": hat, "mu_minimizing": 0.1},
+            num_partitions=part, num_refinements=num_refinements)
+        pars = tc.estimator_parameters()
+        t0 = time.perf_counter()
+        solved_now = mu not in studies
+        if solved_now:
+            study = EocStudy(tc, factory, norms=("energy",), estimator_types=types,
+                             estimate_fn=lambda d, u, t, level: BlockSWIPDGEstimators.estimate(
+                                 d, u, t, pars),
+                             mu=tc.parameters["mu"], energy_mu=tc.parameters["mu"],
+                             solver_options={"type": "direct"}, device=dev)
+            res = study.run(verbose=False)
+            studies[mu] = study
+        else:
+            study = studies[mu]
+            res = {"energy": study.results["energy"],
+                   **{t: [BlockSWIPDGEstimators.estimate(d, u, t, pars)
+                          for d, u in zip(study.discretizations, study.solutions)]
+                      for t in types}}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        key = f"Spe10.parametric_block.{partitioning(part)}.{triple_key(triple)}"
+        for t, got in res.items():
+            want = expected_results(key, "alu_conforming", 1,
+                                    "energy_mu" if t == "energy" else t)
+            if not np.allclose(got, want, rtol=2e-3, atol=0):
+                raise AssertionError(f"{key} {t}: {got} != recorded {want} (rel 2e-3)")
+        if hat == mu:
+            if not np.allclose(res["eta_OS2014"], res["eta_OS2014_*"], rtol=1e-6, atol=0):
+                raise AssertionError(f"{key}: eta_OS2014 != eta_OS2014_* at mu_hat = mu")
+        elif not (res["eta_OS2014"][1] / res["eta_OS2014"][0] > 0.8
+                  and np.log2(res["eta_OS2014_*"][0] / res["eta_OS2014_*"][1]) > 0.9):
+            raise AssertionError(f"{key}: the plain estimate does not stagnate or the star "
+                                 f"one does not converge: {res}")
+        info = study.level_info
+        log("spe10_parametric_block", triple=repr(triple), scheme=study.discretizations[0]._scheme,
+            dofs=repr([i["num_dofs"] for i in info]),
+            reference_dofs=tc.reference_grid.num_cells * 3,
+            **{t: repr([round(v, 6) for v in vals]) for t, vals in res.items()},
+            solved_now=solved_now,
+            level_solve_seconds=repr([round(i["solve_seconds"], 3) for i in info]),
+            seconds=f"{seconds:.2f}")
+    log("spe10_parametric_block_done", solves=len(studies),
+        seconds=f"{time.perf_counter() - t_phase:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
+
+
+def phase_block_provenance(dev, bisections=6, larger=8):
+    """block_provenance_check: the bench's stencil operator and rhs (f32,
+    applied through plane_spmv) against the BlockSWIPDG [20 4 1] global
+    system assembled from its 80 local operators and pairwise couplings
+    (f64) at ``bisections`` (768,000 DoF) and at ``larger`` bisections
+    (3,072,000 DoF), rel_op and rel_rhs <= 1e-4.  The launch count is set
+    to 0 just before and read just after each check.  Returns the
+    launches."""
+    from dune_hdd_tpu_torch.bench_harness import block_provenance_check
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
+
+    launches = 0
+    for b in (bisections, larger):
+        reset_timings()
+        torch.cuda.reset_peak_memory_stats()
+        plane_spmv.launches = 0
+        t0 = time.perf_counter()
+        r = block_provenance_check(bisections=b, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = plane_spmv.launches
+        if n < 3:
+            raise AssertionError(f"provenance at {b} bisections: {n} plane_spmv launches < 3")
+        launches += n
+        host = timings()
+        log("block_provenance", **{k: v for k, v in r.items() if k not in ("rel_op", "rel_rhs")},
+            rel_op=f"{r['rel_op']:.3e}", rel_rhs=f"{r['rel_rhs']:.3e}",
+            locals_seconds=f"{sum(host['block.locals']):.2f}",
+            couplings_seconds=f"{sum(host['block.couplings']):.2f}", seconds=f"{seconds:.2f}",
+            launches=n, peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            card=repr(card()))
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
     """SWIPDG with the 2x2 thermalblock at 14 bisections (1,572,864 DoF, all
     Dirichlet) through make_solve_fn at ``count`` values of mu drawn from
@@ -775,8 +1062,15 @@ def main():
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
     phase_esv2007_cg(dev, tc)
+    n, err = phase_block_esv2007_table(dev, tc)
+    launches["plane_spmv"] += n
+    plane_err = max(plane_err, err)
     del tc
     torch.cuda.empty_cache()
+    phase_os2014_parametric(dev)
+    phase_spe10_parametric_block(dev)
+    torch.cuda.empty_cache()
+    launches["plane_spmv"] += phase_block_provenance(dev)
     n, err = phase_thermalblock_online(dev)
     launches["plane_spmv"] += n
     plane_err = max(plane_err, err)

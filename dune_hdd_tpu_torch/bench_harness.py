@@ -19,6 +19,10 @@ as a device tensor:
 The host geometry plan, the static coefficient and the kernel build are
 set-up, outside the timed call.  The solver settings are the reference's
 size-dependent defaults (``_solver_settings``).
+
+``block_provenance_check`` holds the bench's operator and rhs against the
+BlockSWIPDG [20 4 1] global system assembled from its local and coupling
+parts (``block_system``).
 """
 from __future__ import annotations
 
@@ -30,8 +34,15 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .functions.base import ConstantFunction, IndicatorFunction, ScaledFunction, SumFunction
-from .functions.spe10 import MODEL1_NX, MODEL1_NZ, _synthetic_model1_field
+from .discretizations.block_swipdg import BlockSWIPDGDiscretization
+from .functions.base import (
+    ConstantFunction,
+    IndicatorFunction,
+    ScaledFunction,
+    SumFunction,
+    nonparametric,
+)
+from .functions.spe10 import MODEL1_NX, MODEL1_NZ, Spe10Model1Function, _synthetic_model1_field
 from .grid.boundaryinfo import make_boundary_info
 from .grid.structured import alu_cube_grid
 from .grid.structured_order import structured_cell_order
@@ -50,9 +61,12 @@ from .la.stencil_assembly import (
     scale_planes,
     structured_rhs,
 )
+from .problems.default import DefaultProblem
 from .testcases._spe10_channel import CHANNEL
+from .utils.logging import timed
 
-__all__ = ["build_spe10_bench", "run_spe10_bench", "Spe10Bench", "BenchSolution"]
+__all__ = ["build_spe10_bench", "run_spe10_bench", "Spe10Bench", "BenchSolution",
+           "block_provenance_check", "block_system", "spe10_block_discretization"]
 
 _FORCES = [
     ((0.95, 0.30), (1.10, 0.45), 2000.0),
@@ -138,6 +152,52 @@ def _highest_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+class _BenchGeometry(NamedTuple):
+    grid: object             # the ALU-bisected 100 x 20 grid
+    order: object            # its structured cell order (lattice (KY, KX))
+    tensors: object          # AssemblyTensors on the device
+    to_soa: torch.Tensor     # flat original -> SoA [nd, 8, KY, KX] index map
+    from_soa: torch.Tensor   # flat SoA -> original
+    broadcast: Callable      # [MODEL1_NX, MODEL1_NZ] field -> [8, KY, KX] cell field
+
+
+def _bench_geometry(bisections: int, device) -> _BenchGeometry:
+    """The bench operator's host set-up on ``device``: grid, structured
+    order, assembly plan with the static channel coefficient, SoA maps, and
+    the broadcast of the permeability field onto the lattice, checked
+    against the centroid binning."""
+    grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
+    binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
+    order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
+    KY, KX = order.lattice
+    channel = IndicatorFunction(CHANNEL)
+    diffusion_factor = SumFunction([ConstantFunction(1.0), ScaledFunction(channel, -0.9)])
+    splan = build_structured_assembly(grid, order, binfo)
+    # the channel geometry is static: evaluate it once on the host
+    tensors = assembly_tensors(splan, precompute_coefficient(splan, diffusion_factor), device)
+    to_soa, from_soa = geometric_soa_maps(order, splan)
+    # the macro grid tiles the lattice, so the cell-constant permeability in
+    # SoA order is a pure broadcast cf[k, iy, ix] = field[ix // fx, iy // fy];
+    # verify that layout against the centroid binning
+    fy, fx = KY // MODEL1_NZ, KX // MODEL1_NX
+    ij_cell = np.clip(
+        (grid.cell_centroids / np.array([5.0, 1.0]) * np.array([MODEL1_NX, MODEL1_NZ]))
+        .astype(np.int64), 0, np.array([MODEL1_NX - 1, MODEL1_NZ - 1]))
+    ij_soa = ij_cell[np.asarray(order.inv)].reshape(8, KY, KX, 2)
+    iyg, ixg = np.meshgrid(np.arange(KY), np.arange(KX), indexing="ij")
+    if not ((ij_soa[..., 0] == (ixg // fx)[None]).all()
+            and (ij_soa[..., 1] == (iyg // fy)[None]).all()):
+        raise AssertionError("permeability broadcast does not match the centroid binning")
+
+    def broadcast(field: torch.Tensor) -> torch.Tensor:
+        cf2d = field.t()[:, None, :, None].expand(MODEL1_NZ, fy, MODEL1_NX, fx)
+        return cf2d.reshape(KY, KX)[None].expand(8, KY, KX)
+
+    return _BenchGeometry(grid, order, tensors,
+                          torch.as_tensor(to_soa, dtype=torch.long, device=device),
+                          torch.as_tensor(from_soa, dtype=torch.long, device=device), broadcast)
+
+
 def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
                       spmv: Callable = plane_spmv, macro=_MACRO) -> Spe10Bench:
     """Set up the bench at ``bisections`` (even) on ``device`` (the card
@@ -154,42 +214,15 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
     settings = _solver_settings(bisections, (KY, KX))
     _highest_precision()
     device = resolve_device(device)
-    grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
-    binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
-    order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
-    if order.lattice != (KY, KX):
-        raise AssertionError(f"structured lattice {order.lattice}, expected {(KY, KX)}")
-    channel = IndicatorFunction(CHANNEL)
-    diffusion_factor = SumFunction([ConstantFunction(1.0), ScaledFunction(channel, -0.9)])
+    geo = _bench_geometry(bisections, device)
+    if geo.order.lattice != (KY, KX):
+        raise AssertionError(f"structured lattice {geo.order.lattice}, expected {(KY, KX)}")
     force = IndicatorFunction(_FORCES)
-    splan = build_structured_assembly(grid, order, binfo)
-    # the channel geometry is static: evaluate it once on the host
-    tensors = assembly_tensors(splan, precompute_coefficient(splan, diffusion_factor),
-                               device)
-    to_soa, from_soa = geometric_soa_maps(order, splan)
-    # the macro grid tiles the lattice, so the cell-constant permeability in
-    # SoA order is a pure broadcast cf[k, iy, ix] = field[ix // fx, iy // fy];
-    # verify that layout against the centroid binning
-    fy, fx = KY // MODEL1_NZ, KX // MODEL1_NX
-    ij_cell = np.clip(
-        (grid.cell_centroids / np.array([5.0, 1.0]) * np.array([MODEL1_NX, MODEL1_NZ]))
-        .astype(np.int64), 0, np.array([MODEL1_NX - 1, MODEL1_NZ - 1]))
-    ij_soa = ij_cell[np.asarray(order.inv)].reshape(8, KY, KX, 2)
-    iyg, ixg = np.meshgrid(np.arange(KY), np.arange(KX), indexing="ij")
-    if not ((ij_soa[..., 0] == (ixg // fx)[None]).all()
-            and (ij_soa[..., 1] == (iyg // fy)[None]).all()):
-        raise AssertionError("permeability broadcast does not match the centroid binning")
-    from_soa_t = torch.as_tensor(from_soa, dtype=torch.long, device=device)
-    to_soa_t = torch.as_tensor(to_soa, dtype=torch.long, device=device)
-
-    def broadcast_field(field32: torch.Tensor) -> torch.Tensor:
-        cf2d = field32.t()[:, None, :, None].expand(MODEL1_NZ, fy, MODEL1_NX, fx)
-        return cf2d.reshape(KY, KX)[None].expand(8, KY, KX)
 
     def assemble(field: torch.Tensor):
-        S = assemble_structured_spe10(tensors, broadcast_field(field.to(torch.float32)))
+        S = assemble_structured_spe10(geo.tensors, geo.broadcast(field.to(torch.float32)))
         S = StencilBlockEll(S.planes, S.plan, spmv)
-        return scale_planes(S, structured_rhs(tensors, force))
+        return scale_planes(S, structured_rhs(geo.tensors, force))
 
     def precondition(S: StencilBlockEll, s: torch.Tensor):
         if settings.symmetric:
@@ -206,15 +239,15 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
             S, B, M, tol=tol, inner_iters=settings.inner_iters,
             inner_rtol=settings.inner_rtol, outer_max=settings.outer_max,
             unroll=settings.unroll)
-        u = (X * s.to(X.dtype)).reshape(-1)[from_soa_t]
+        u = (X * s.to(X.dtype)).reshape(-1)[geo.from_soa]
         return BenchSolution(u, res, iters, sweeps)
 
     def fn(field: torch.Tensor) -> BenchSolution:
         return solve(*assemble(field))
 
     field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
-    return Spe10Bench(fn, field, grid.num_cells * 3, assemble, solve, precondition, to_soa_t,
-                      settings, mid_shape, order.offsets)
+    return Spe10Bench(fn, field, geo.grid.num_cells * 3, assemble, solve, precondition,
+                      geo.to_soa, settings, mid_shape, geo.order.offsets)
 
 
 def _sync(device: torch.device) -> None:
@@ -259,4 +292,110 @@ def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
         "bench": bench,
         "field": f if repeats else bench.field,
         "u": sol.u,
+    }
+
+
+def spe10_block_discretization(grid, field: torch.Tensor, partitioning=(20, 4), device="cuda"
+                               ) -> BlockSWIPDGDiscretization:
+    """The bench's SPE10 problem (channel-modulated diffusion factor, the
+    permeability ``field`` as tensor, box forces, all Dirichlet) as a
+    BlockSWIPDG discretization of ``grid`` with ``partitioning``, no
+    products."""
+    channel = IndicatorFunction(CHANNEL, name="channel")
+    problem = DefaultProblem(
+        diffusion_factor=nonparametric(SumFunction(
+            [ConstantFunction(1.0), ScaledFunction(channel, -0.9)], name="diffusion_factor")),
+        diffusion_tensor=nonparametric(Spe10Model1Function.from_field(field,
+                                                                     name="spe10_field")),
+        force=nonparametric(IndicatorFunction(_FORCES, name="force")))
+    return BlockSWIPDGDiscretization(
+        grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"}, problem,
+        num_partitions=tuple(partitioning), only_these_products=(), device=device)
+
+
+def block_system(bdisc, mu=None):
+    """(matvec, rhs) of the global system of a BlockSWIPDGDiscretization
+    assembled from its parts: the per-subdomain local operators and
+    functionals plus the pairwise coupling operators, frozen at ``mu`` and
+    applied on the discretization's device.  Builds every part (host phases
+    "block.locals" and "block.couplings" of ``utils.logging.timings``)."""
+    dev = bdisc.device
+    S = bdisc.num_subdomains()
+    dofs = [torch.as_tensor(bdisc._local_dof_map(ss)).to(dev) for ss in range(S)]
+    with timed("block.locals", sync=dev):
+        locals_ = [bdisc.get_local_operator(ss).freeze(mu) for ss in range(S)]
+        rhs = torch.zeros(bdisc.space.num_dofs, dtype=bdisc.space.dtype, device=dev)
+        for ss in range(S):
+            rhs[dofs[ss]] += bdisc.get_local_rhs(ss).freeze(mu)
+    with timed("block.couplings", sync=dev):
+        couplings = [(ss, int(nn), bdisc.get_coupling_operator(ss, int(nn)).freeze(mu))
+                     for ss in range(S) for nn in bdisc.neighbouring_subdomains(ss) if nn > ss]
+
+    def matvec(x: torch.Tensor) -> torch.Tensor:
+        y = torch.zeros_like(x)
+        for A, d in zip(locals_, dofs):
+            y[d] += A.matvec(x[d])
+        for ss, nn, c in couplings:
+            ds, dn = dofs[ss], dofs[nn]
+            xs, xn = x[ds], x[dn]
+            y[ds] += c.in_in.matvec(xs)
+            y[ds] += c.in_out.matvec(xn)
+            y[dn] += c.out_in.matvec(xs)
+            y[dn] += c.out_out.matvec(xn)
+        return y
+
+    return matvec, rhs
+
+
+def block_provenance_check(bisections: int = 2, partitioning=(20, 4), nvec: int = 3,
+                           seed: int = 0, device="cuda") -> dict:
+    """Assert that the operator and rhs the bench assembles are the
+    BlockSWIPDG global system: the bench's frozen stencil operator (its own
+    builders, applied through ``plane_spmv`` in float32) against the sum of
+    the per-subdomain local operators and pairwise couplings of
+    ``BlockSWIPDGDiscretization`` on the [20 4 1] partitioning (float64), on
+    ``nvec`` random vectors; rel_op and rel_rhs <= 1e-4.  Runs on ``device``
+    (the card unless the caller asks for the CPU); raises AssertionError
+    past the gate, else returns the record."""
+    _highest_precision()
+    device = resolve_device(device)
+    bisections -= bisections % 2  # the structured order needs even bisections
+    geo = _bench_geometry(bisections, device)
+    KY, KX = geo.order.lattice
+    field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
+    force = IndicatorFunction(_FORCES, name="force")
+
+    # the benched operator: the bench's builders, frozen at the example field
+    S = assemble_structured_spe10(geo.tensors, geo.broadcast(field))
+    b_bench = structured_rhs(geo.tensors, force).reshape(-1)[geo.from_soa].double()
+
+    def bench_matvec(x: torch.Tensor) -> torch.Tensor:
+        X = x.to(S.planes.dtype)[geo.to_soa].reshape(3, 8, KY, KX)
+        return S.matvec(X).reshape(-1)[geo.from_soa].double()
+
+    # the block artifact: per-subdomain locals + pairwise couplings
+    bdisc = spe10_block_discretization(geo.grid, field, partitioning, device)
+    block_matvec, b_block = block_system(bdisc, {})
+
+    rng = np.random.default_rng(seed)
+    n = bdisc.space.num_dofs
+    rel_op = 0.0
+    for _ in range(nvec):
+        x = torch.as_tensor(rng.standard_normal(n)).to(device)
+        yb, ys = block_matvec(x), bench_matvec(x)
+        rel_op = max(rel_op, float(torch.linalg.norm(ys - yb)
+                                   / max(float(torch.linalg.norm(yb)), 1e-30)))
+    rel_rhs = float(torch.linalg.norm(b_bench - b_block)
+                    / max(float(torch.linalg.norm(b_block)), 1e-30))
+    if rel_op > 1e-4 or rel_rhs > 1e-4:
+        raise AssertionError(f"bench operator != BlockSWIPDG global system: "
+                             f"rel_op={rel_op:.3e} rel_rhs={rel_rhs:.3e}")
+    return {
+        "artifact": "block-swipdg",
+        "partitioning": [int(partitioning[0]), int(partitioning[1]), 1],
+        "num_subdomains": int(bdisc.num_subdomains()),
+        "checked_dofs": int(n),
+        "bisections": int(bisections),
+        "rel_op": rel_op,
+        "rel_rhs": rel_rhs,
     }

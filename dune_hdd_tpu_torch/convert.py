@@ -4,7 +4,8 @@ The port never imports jax; callers hand over ``np.asarray`` copies of the
 reference's arrays (for example the planes of a reference StencilBlockEll,
 its StructuredAssemblyPlan, or the pattern fields and slot values of its
 assembled SparseMatrix family), so both sides can run on the same operator
-and inputs.
+and inputs.  ``coupling_from_numpy`` carries the four blocks of a
+BlockSWIPDG coupling operator.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .affine import AffineDecomposition
+from .discretizations.block_swipdg import CouplingOperator
 from .la.block_ell import StructuredBlockEll
 from .la.sparse import SparseMatrix, SparsityPattern
 from .la.stencil import StencilBlockEll
@@ -21,7 +23,7 @@ from .la.stencil_assembly import StructuredAssemblyPlan, _FaceFamily
 from .parameters import ParameterFunctional
 
 __all__ = ["stencil_from_numpy", "structured_from_numpy", "assembly_plan_from_numpy",
-           "pattern_from_numpy", "sparse_from_numpy", "affine_from_numpy"]
+           "pattern_from_numpy", "sparse_from_numpy", "coupling_from_numpy", "affine_from_numpy"]
 
 _PATTERN_ARRAYS = ("perm", "seg_ids", "slot_rows", "slot_cols", "ell_cols", "ell_mask",
                    "slot_ell_pos", "diag_slot")
@@ -52,6 +54,24 @@ def sparse_from_numpy(pattern_fields, values: np.ndarray, device,
     if values.shape != (pattern.nnz,):
         raise ValueError(f"values must be [{pattern.nnz}], got {values.shape}")
     return SparseMatrix(pattern, torch.tensor(values, device=device))
+
+
+def coupling_from_numpy(blocks, device, patterns: Optional[dict] = None) -> CouplingOperator:
+    """The port's CouplingOperator from the reference's four coupling
+    blocks: ``blocks`` has (as attributes or keys) in_in, in_out, out_in and
+    out_out, each with its pattern fields under ``pattern`` and its slot
+    values under ``values``, as the reference's SparseMatrix has.  One
+    ``patterns`` dict passed for all the affine components of a pair keeps
+    one converted pattern per block, as the port's own couplings do."""
+    patterns = {} if patterns is None else patterns
+    mats = {}
+    for name in ("in_in", "in_out", "out_in", "out_out"):
+        block = _field(blocks, name)
+        if name not in patterns:
+            patterns[name] = pattern_from_numpy(_field(block, "pattern"))
+        mats[name] = sparse_from_numpy(None, np.asarray(_field(block, "values")), device,
+                                       pattern=patterns[name])
+    return CouplingOperator(**mats)
 
 
 def affine_from_numpy(components: Sequence[np.ndarray], coefficients: Sequence,

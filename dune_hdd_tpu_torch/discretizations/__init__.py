@@ -1,5 +1,7 @@
 from .base import StationaryDiscretization
+from .block_swipdg import BlockSWIPDGDiscretization
 from .cg import CGDiscretization
 from .swipdg import SWIPDGDiscretization
 
-__all__ = ["StationaryDiscretization", "CGDiscretization", "SWIPDGDiscretization"]
+__all__ = ["StationaryDiscretization", "CGDiscretization", "SWIPDGDiscretization",
+           "BlockSWIPDGDiscretization"]

@@ -152,11 +152,16 @@ class SparseMatrix:
     __rmul__ = __mul__
 
     def __add__(self, other):
-        if isinstance(other, SparseMatrix):
-            if other.pattern is not self.pattern and other.pattern.shape != self.pattern.shape:
-                raise ValueError("adding sparse matrices of different patterns")
-            return SparseMatrix(self.pattern, self.values + other.values)
-        return NotImplemented
+        """Slot-by-slot sum: the two patterns must be one object or have
+        the same shape and the same slots (rows and columns in order)."""
+        if not isinstance(other, SparseMatrix):
+            return NotImplemented
+        a, b = self.pattern, other.pattern
+        if a is not b and not (a.shape == b.shape and np.array_equal(a.slot_rows, b.slot_rows)
+                               and np.array_equal(a.slot_cols, b.slot_cols)):
+            raise ValueError(f"adding sparse matrices of different patterns "
+                             f"({a.shape}, {a.nnz} slots and {b.shape}, {b.nnz} slots)")
+        return SparseMatrix(a, self.values + other.values)
 
     @cached_property
     def ell(self) -> torch.Tensor:

@@ -1,7 +1,11 @@
 from .default import DefaultProblem
 from .esv2007 import ESV2007Problem
 from .interfaces import Problem
+from .os2014 import ParametricESV2007Problem
+from .spe10 import Spe10Model1Problem
 from .thermalblock import LocalThermalblockProblem, ThermalblockProblem
+from .zero_boundary import ZeroBoundaryProblem
 
 __all__ = ["Problem", "DefaultProblem", "ESV2007Problem", "ThermalblockProblem",
-           "LocalThermalblockProblem"]
+           "LocalThermalblockProblem", "ParametricESV2007Problem", "Spe10Model1Problem",
+           "ZeroBoundaryProblem"]

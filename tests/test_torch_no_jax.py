@@ -29,6 +29,14 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.testcases.esv2007, dune_hdd_tpu_torch.studies\n"
         "import dune_hdd_tpu_torch.estimators, dune_hdd_tpu_torch.estimators.swipdg\n"
         "from dune_hdd_tpu_torch.discretizations.cg import CGDiscretization\n"
+        "import dune_hdd_tpu_torch.grid.multiscale, dune_hdd_tpu_torch.problems.zero_boundary\n"
+        "import dune_hdd_tpu_torch.problems.os2014, dune_hdd_tpu_torch.problems.spe10\n"
+        "import dune_hdd_tpu_torch.discretizations.block_swipdg, dune_hdd_tpu_torch.utils.vtk\n"
+        "import dune_hdd_tpu_torch.estimators.block_swipdg, dune_hdd_tpu_torch.functions.spe10\n"
+        "import dune_hdd_tpu_torch.studies.localization, dune_hdd_tpu_torch.testcases.os2014\n"
+        "import dune_hdd_tpu_torch.testcases.thermalblock, dune_hdd_tpu_torch.testcases.spe10\n"
+        "from dune_hdd_tpu_torch.bench_harness import block_provenance_check\n"
+        "from dune_hdd_tpu_torch.convert import coupling_from_numpy\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
