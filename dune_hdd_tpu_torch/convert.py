@@ -5,7 +5,8 @@ reference's arrays (for example the planes of a reference StencilBlockEll,
 its StructuredAssemblyPlan, or the pattern fields and slot values of its
 assembled SparseMatrix family), so both sides can run on the same operator
 and inputs.  ``coupling_from_numpy`` carries the four blocks of a
-BlockSWIPDG coupling operator.
+BlockSWIPDG coupling operator; ``reduced_model_from_numpy`` carries a
+trained reduced model (its dense arrays and coefficient expressions).
 """
 from __future__ import annotations
 
@@ -15,15 +16,18 @@ import numpy as np
 import torch
 
 from .affine import AffineDecomposition
+from .device import resolve_device
 from .discretizations.block_swipdg import CouplingOperator
 from .la.block_ell import StructuredBlockEll
 from .la.sparse import SparseMatrix, SparsityPattern
 from .la.stencil import StencilBlockEll
 from .la.stencil_assembly import StructuredAssemblyPlan, _FaceFamily
+from .mor.reductor import ReducedModel
 from .parameters import ParameterFunctional
 
 __all__ = ["stencil_from_numpy", "structured_from_numpy", "assembly_plan_from_numpy",
-           "pattern_from_numpy", "sparse_from_numpy", "coupling_from_numpy", "affine_from_numpy"]
+           "pattern_from_numpy", "sparse_from_numpy", "coupling_from_numpy", "affine_from_numpy",
+           "reduced_model_from_numpy"]
 
 _PATTERN_ARRAYS = ("perm", "seg_ids", "slot_rows", "slot_cols", "ell_cols", "ell_mask",
                    "slot_ell_pos", "diag_slot")
@@ -88,13 +92,33 @@ def affine_from_numpy(components: Sequence[np.ndarray], coefficients: Sequence,
             return torch.tensor(np.asarray(a), device=device)
         return sparse_from_numpy(None, a, device, pattern=pattern)
 
-    def functional(c):
-        pt, expr = (c if isinstance(c, tuple) else (c.parameter_type, c.expression))
-        return ParameterFunctional(dict(pt.items()), expr)
-
     return AffineDecomposition([payload(a) for a in components],
-                               [functional(c) for c in coefficients],
+                               [_functional(c) for c in coefficients],
                                None if affine_part is None else payload(affine_part))
+
+
+def _functional(c) -> ParameterFunctional:
+    """A ``(parameter_type mapping, expression)`` pair or an object with
+    ``parameter_type`` and ``expression`` -> the port's functional."""
+    pt, expr = (c if isinstance(c, tuple) else (c.parameter_type, c.expression))
+    return ParameterFunctional(dict(pt.items()), expr)
+
+
+def reduced_model_from_numpy(op_mats: np.ndarray, op_coeffs: Sequence, rhs_vecs: np.ndarray,
+                             rhs_coeffs: Sequence, basis: np.ndarray,
+                             products: Optional[Mapping[str, np.ndarray]] = None,
+                             device="cuda") -> ReducedModel:
+    """The port's ReducedModel from a reference model's arrays (op_mats
+    [Q, n, n], rhs_vecs [Qr, n], basis [n, N], products {name: [n, n]}) and
+    coefficients (as in ``affine_from_numpy``), copied to ``device``."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    return ReducedModel(t(op_mats), [_functional(c) for c in op_coeffs], t(rhs_vecs),
+                        [_functional(c) for c in rhs_coeffs], t(basis),
+                        {name: t(m) for name, m in (products or {}).items()})
 
 
 def stencil_from_numpy(planes: np.ndarray, plan, device) -> StencilBlockEll:

@@ -171,16 +171,18 @@ def _compile_expression(expression: str, names: Iterable[str]) -> Callable:
 
 
 class _ScalarOrVector:
-    """``mu`` acts as mu[0] in arithmetic but supports mu[i] indexing."""
+    """``mu`` acts as mu[0] in arithmetic but supports mu[i] indexing.  The
+    entries index the last axis, so a stacked [M, k] component evaluates an
+    expression for M parameters at once."""
 
     def __init__(self, vec):
         self._vec = vec
 
     def __getitem__(self, i):
-        return self._vec[i]
+        return self._vec[..., i]
 
     def _s(self):
-        return self._vec[0]
+        return self._vec[..., 0]
 
     def __add__(self, o):
         return self._s() + _unwrap(o)

@@ -37,6 +37,12 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.testcases.thermalblock, dune_hdd_tpu_torch.testcases.spe10\n"
         "from dune_hdd_tpu_torch.bench_harness import block_provenance_check\n"
         "from dune_hdd_tpu_torch.convert import coupling_from_numpy\n"
+        "import dune_hdd_tpu_torch.mor, dune_hdd_tpu_torch.mor.gram_schmidt\n"
+        "import dune_hdd_tpu_torch.mor.reductor, dune_hdd_tpu_torch.mor.residual\n"
+        "import dune_hdd_tpu_torch.mor.greedy, dune_hdd_tpu_torch.mor.batch\n"
+        "import dune_hdd_tpu_torch.mor.io, dune_hdd_tpu_torch.mor.adaptive\n"
+        "import dune_hdd_tpu_torch.mor.pymor_shim\n"
+        "from dune_hdd_tpu_torch.convert import reduced_model_from_numpy\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )

@@ -76,9 +76,13 @@ def test_parameter_type_merge_and_parse():
 def test_parameter_functional(expression):
     f = pt_par.ParameterFunctional(TYPE, expression)
     g = jx_par.ParameterFunctional(TYPE, expression)
-    for seed in range(3):
-        mu = _mu(seed)
-        _close(f(pt_par.parse_parameter(mu)), g(jx_par.parse_parameter(mu)))
+    parsed = [pt_par.parse_parameter(_mu(seed)) for seed in range(3)]
+    for seed, mu in enumerate(parsed):
+        _close(f(mu), g(jx_par.parse_parameter(_mu(seed))))
+    # stacked [M, k] components evaluate all M parameters at once
+    stacked = {k: torch.stack([mu[k] for mu in parsed]) for k in parsed[0]}
+    np.testing.assert_allclose(f(stacked).expand(3).numpy(),
+                               [float(f(mu)) for mu in parsed], rtol=1e-15, atol=0)
     assert f == pt_par.ParameterFunctional(TYPE, expression)
     assert repr(f) == repr(g)
 

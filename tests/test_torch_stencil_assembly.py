@@ -3,9 +3,10 @@ equals the JAX package's on the SPE10 system at 2 bisections: planes, rhs
 and diagonal scaling at 1e-12 x max in float64 and 1e-5 x max in float32
 (the float32 side of the reference runs as the bench runs it: x64 off,
 highest matmul precision), the precomputed coefficient and the synthetic
-permeability field bitwise."""
+permeability field bitwise; at 6 bisections the float32 rhs bitwise."""
 import contextlib
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -130,3 +131,39 @@ def test_planes_rhs_scaling_match(reference, dtype, rel):
         assert got.dtype == tdt and tuple(got.shape) == want.shape, name
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=rel * np.abs(want).max(), err_msg=name)
+
+
+def test_float32_rhs_bitwise_at_768k():
+    """At 6 bisections (768,000 DoF) the float32 rhs equals the reference's
+    bitwise, and both lie 4.768e-8 (relative, 2-norm) from the float64 rhs:
+    the rel_rhs of the bench's block provenance check on the card, so the
+    reference's 1.407e-8 there is the TPU's own float32 rounding."""
+    grid = jx_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=6)
+    order = jx_order(grid, (0.0, 0.0), (5.0, 1.0))
+    splan = jx_sa.build_structured_assembly(
+        grid, order, jx_binfo(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"}))
+    plan = assembly_plan_from_numpy(splan)
+    rhs = {}
+    for dtype in (np.float64, np.float32):
+        with contextlib.ExitStack() as stack:
+            _jx_scope(stack, dtype)
+            ref = np.asarray(jx_sa.structured_rhs(splan, jx_fn.IndicatorFunction(JX_FORCES),
+                                                  dtype=dtype))
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+
+        def t(a, tdt=tdt):
+            return torch.as_tensor(np.asarray(a), dtype=tdt)
+
+        # the fields of AssemblyTensors that structured_rhs reads
+        T = SimpleNamespace(qp_x=t(plan.vol_qp[..., 0]), qp_y=t(plan.vol_qp[..., 1]),
+                            vol_wvals=t(plan.vol_wvals))
+        got = structured_rhs(T, IndicatorFunction(_FORCES)).numpy()
+        assert got.dtype == ref.dtype and got.shape == ref.shape == (3, 8, 80, 400)
+        rhs[dtype] = (got, ref)
+    got32, ref32 = rhs[np.float32]
+    np.testing.assert_array_equal(got32, ref32)
+    b64 = rhs[np.float64][1]
+    np.testing.assert_allclose(rhs[np.float64][0], b64, rtol=0, atol=1e-14 * np.abs(b64).max())
+    for b32 in (got32, ref32):
+        rel = np.linalg.norm(b32.astype(np.float64) - b64) / np.linalg.norm(b64)
+        assert f"{rel:.3e}" == "4.768e-08", rel
