@@ -12,8 +12,12 @@ OS2014 path (the published block table at four partitionings, [8 8 1] to
 bench's block provenance check at 768k and 3.07M DoF), 8 online
 thermalblock solves at 1.57M DoF through the general parametric SWIPDG
 path, and model order reduction: the RB / LRBMS greedy workflow on that
-1.57M-DoF thermalblock and the adaptive LRBMS enrichment.  Exits non-zero
-if any phase fails or there is no card.
+1.57M-DoF thermalblock and the adaptive LRBMS enrichment; and the higher
+orders and other cells: SWIPDG P2 to 3.15M DoF and P3 to 1.31M DoF on the
+ESV2007 hierarchy (stencil_cg on the plane SpMV at 6 and 10 DoF per cell,
+the RT1 estimators for P2), Q1 / Q2 on the ESV2007 cube (quad) hierarchy,
+CG P2 / P3 / Q2, interval SWIPDG orders 1-3 and gmres.  Exits non-zero if
+any phase fails or there is no card.
 
     python3 chip_smoke.py
 
@@ -40,14 +44,24 @@ the RB workflow on the same grid (BlockSWIPDG [2 2]: the RB and LRBMS greedy
 with the Riesz estimator and stencil_cg snapshots, their errors at the 8
 solved mu, the batched online sweep over 1,024 mu against single solves,
 save/load), the recorded adaptive LRBMS trajectory on SPE10 [20 4 1] and
-the adaptive OS2014 [2 2] enrichment with 3 oversampling layers.
-Then a JSON line of the kernels, the card's name and power limit, and last
+the adaptive OS2014 [2 2] enrichment with 3 oversampling layers.  After the
+block table: the P2 study (levels 0-6, the four RT1-based estimators,
+div t_h = Pi_P1 f at level 6) and the P3 study (levels 0-5), each followed
+by both SpMV kernels at its nd (against their plain versions, timed beside
+the BSR library call, and an f32 power iteration through each); the cube
+Q1 study (levels 0-6, the recorded cube table, RT0 conservation) and Q2
+(levels 0-5); CG P2 / P3 / Q2 (levels 0-5); interval SWIPDG; gmres and
+gmres.jacobi at ESV2007 level 3.  Then a JSON line of the kernels (one row
+per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, and per
+structured_spmv nd), the card's name and power limit, and last
 {"ok": true, ...}.
 """
+import copy
 import json
 import statistics
 import subprocess
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -61,6 +75,25 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 _T0 = time.perf_counter()
 _LAST = [_T0]
+# plane_spmv launches on the paths driven, by instantiation ("nd3_f32", ...)
+PATH_LAUNCHES = Counter()
+
+
+def start_path():
+    """Sets plane_spmv's launch counts to 0 just before a path is driven."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+
+    plane_spmv.launches = 0
+    plane_spmv.case_launches.clear()
+
+
+def end_path() -> int:
+    """Reads plane_spmv's launch counts just after a path, adds them to
+    PATH_LAUNCHES by instantiation and returns their sum."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+
+    PATH_LAUNCHES.update(plane_spmv.case_launches)
+    return plane_spmv.launches
 
 
 def log(phase, **fields):
@@ -136,8 +169,8 @@ def phase_plane_vs_plain(dev):
 
 
 def flat(X):
-    """[3, 8, KY, KX] plane-layout vector -> flat cell-major [nc * 3]."""
-    return X.reshape(3, -1).t().reshape(-1)
+    """[nd, 8, KY, KX] plane-layout vector -> flat cell-major [nc * nd]."""
+    return X.reshape(X.shape[0], -1).t().reshape(-1)
 
 
 def phase_structured_vs_plain(dev, bench, S, B):
@@ -214,11 +247,11 @@ def phase_main_path(dev, bisections, repeats):
     set to 0 just before and read just after.  Returns the run's dict and
     the launch count."""
     from dune_hdd_tpu_torch.bench_harness import run_spe10_bench
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference
 
-    plane_spmv.launches = 0
+    start_path()
     r = run_spe10_bench(bisections=bisections, repeats=repeats, tol=1e-6, device=dev)
-    launches = plane_spmv.launches
+    launches = end_path()
     if not r["residual"] <= 1e-6:
         raise AssertionError(f"residual {r['residual']:.3e} > 1e-6")
     bench = r["bench"]
@@ -519,7 +552,6 @@ def phase_esv2007_study(dev):
 
     from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
     from dune_hdd_tpu_torch.estimators import SWIPDGEstimators
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
     from dune_hdd_tpu_torch.studies import (
         EocStudy, check_eoc_study_for_success, expected_results)
     from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase
@@ -539,14 +571,14 @@ def phase_esv2007_study(dev):
     options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
     reset_timings()
     torch.cuda.reset_peak_memory_stats()
-    plane_spmv.launches = 0
+    start_path()
     t0 = time.perf_counter()
     tc = ESV2007TestCase(num_refinements=ESV_LEVELS)
     hierarchy_s = time.perf_counter() - t0
     study = EocStudy(tc, SWIPDGDiscretization, estimator_types=ESV_ESTIMATORS,
                      estimate_fn=estimate_fn, solver_options=options, device=dev)
     results = study.run(verbose=False)
-    launches = plane_spmv.launches
+    launches = end_path()
     host = timings()
     log("esv2007_study", levels=f"0-{ESV_LEVELS}", hierarchy_host_seconds=f"{hierarchy_s:.2f}",
         reference_level_cells=tc.reference_grid.num_cells,
@@ -643,14 +675,13 @@ def phase_block_esv2007_table(dev, tc):
     kernel's max abs error on the last level's operator)."""
     from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
     from dune_hdd_tpu_torch.estimators.block_swipdg import BlockSWIPDGEstimators
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
     from dune_hdd_tpu_torch.ops.norms import error_norms
     from dune_hdd_tpu_torch.studies import eoc_rates, expected_results
 
     max_iter = 50000
     options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
     torch.cuda.reset_peak_memory_stats()
-    plane_spmv.launches = 0
+    start_path()
     t_phase = time.perf_counter()
 
     def build_and_solve(grid, part, u=None):
@@ -709,7 +740,7 @@ def phase_block_esv2007_table(dev, tc):
         table[deep, level] = vals
         log_level(deep, level, d, vals, seconds, info)
         del u
-    launches = plane_spmv.launches
+    launches = end_path()
     levels = range(BLOCK_TABLE_LEVELS - 1, tc.num_refinements + 1)
     eoc = eoc_rates([table[deep, level]["eta_OS2014"] for level in levels])
     eff = [table[deep, level]["eff_OS2014"] for level in levels]
@@ -872,19 +903,18 @@ def phase_block_provenance(dev, bisections=6, larger=8):
     to 0 just before and read just after each check.  Returns the
     launches."""
     from dune_hdd_tpu_torch.bench_harness import block_provenance_check
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
     from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
 
     launches = 0
     for b in (bisections, larger):
         reset_timings()
         torch.cuda.reset_peak_memory_stats()
-        plane_spmv.launches = 0
+        start_path()
         t0 = time.perf_counter()
         r = block_provenance_check(bisections=b, device=dev)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        n = plane_spmv.launches
+        n = end_path()
         if n < 3:
             raise AssertionError(f"provenance at {b} bisections: {n} plane_spmv launches < 3")
         launches += n
@@ -909,11 +939,10 @@ def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
     the solutions))."""
     from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
     from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
     from dune_hdd_tpu_torch.problems import ThermalblockProblem
 
     torch.cuda.reset_peak_memory_stats()
-    plane_spmv.launches = 0
+    start_path()
     t0 = time.perf_counter()
     grid = alu_cube_grid((0, 0), (1, 1), (4, 4), refinements=bisections)
     t1 = time.perf_counter()
@@ -949,7 +978,7 @@ def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
     u_st = d.solve(mus[0], options={"type": "stencil_cg", "precision": 1e-8, "max_iter": 50000})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = plane_spmv.launches
+    launches = end_path()
     info = d.last_solve_info
     diff = ((u_st - first).abs().max() / first.abs().max()).item()
     if not (info["type"] == "stencil_cg" and diff <= 1e-5 and launches > 0):
@@ -1039,7 +1068,6 @@ def phase_rb_thermalblock(dev, grid, mus, solutions, seed=6):
     import tempfile
 
     from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
     from dune_hdd_tpu_torch.mor import (
         greedy_lrbms, greedy_rb, load_reduced_model, sample_randomly, save_reduced_model)
     from dune_hdd_tpu_torch.mor.batch import (
@@ -1065,7 +1093,7 @@ def phase_rb_thermalblock(dev, grid, mus, solutions, seed=6):
     d.uncached_solve = recording_solve
     training = sample_randomly(d.parameter_type, 0.1, 1.0, RB_TRAINING, seed=seed)
     opts = {"type": "stencil_cg", "precision": 1e-8, "max_iter": 50000}
-    plane_spmv.launches = 0
+    start_path()
     results, seconds = {}, {}
     for name, fn, kw in (
             ("rb", greedy_rb, dict(max_extensions=RB_EXTENSIONS, extension_algorithm="gram_schmidt",
@@ -1089,7 +1117,7 @@ def phase_rb_thermalblock(dev, grid, mus, solutions, seed=6):
             riesz_row_cache_hits=res.estimator.cache_hits,
             riesz_row_cache_misses=res.estimator.cache_misses,
             peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
-    launches = plane_spmv.launches
+    launches = end_path()
     d.uncached_solve = uncached
     rb, lrbms = results["rb"], results["lrbms"]
     if not (rb.extensions == RB_EXTENSIONS and lrbms.extensions == LRBMS_EXTENSIONS):
@@ -1257,6 +1285,380 @@ def phase_adaptive_os2014(dev):
                              f"enriched {res.enriched_subdomains}")
 
 
+# -- orders 2-3, quads, intervals and gmres ----------------------------------
+
+HIGHER_LEVELS = {2: 6, 3: 5}  # P2 to 3,145,728 DoF, P3 to 1,310,720 DoF
+P2_ESTIMATORS = ("eta_NC_ESV2007", "eta_R_ESV2007_*", "eta_DF_ESV2007", "eta_ESV2007")
+CUBE_LEVELS = {1: 6, 2: 5}  # Q1 to 1,048,576 DoF, Q2 to 589,824 DoF
+CUBE_VALUE_RTOL = 5e-3
+CG_HIGHER_LEVELS = 5  # CG P2 / P3 / Q2 to 263,169 / 591,361 / 263,169 DoF
+GMRES_LEVEL = 3  # 24,576 SWIPDG DoF
+
+
+def truncated(tc, num_refinements):
+    """The test case with its study stopped at ``num_refinements``; the
+    hierarchy (and every table cached on its grids) is shared."""
+    out = copy.copy(tc)
+    out.num_refinements = num_refinements
+    return out
+
+
+def rates(study, keys):
+    return {k: study.eoc(k) for k in keys}
+
+
+def log_levels(tag, study, results, estimator_seconds=None):
+    for r, info in enumerate(study.level_info):
+        fields = dict(level=r, dofs=info["num_dofs"],
+                      **{k: f"{results[k][r]:.6e}" for k in results},
+                      solver=info["type"], iterations=info["iterations"],
+                      time_to_solution=f"{study.time_to_solution[r]:.3f}",
+                      assembly_seconds=f"{info['assembly_seconds']:.3f}",
+                      solve_seconds=f"{info['solve_seconds']:.3f}")
+        if estimator_seconds is not None:
+            fields["estimator_seconds"] = f"{sum(estimator_seconds[r].values()):.3f}"
+        log(tag, **fields)
+
+
+def timed_estimates(types):
+    """(estimate_fn for EocStudy that times each type, seconds by level)."""
+    from dune_hdd_tpu_torch.estimators import SWIPDGEstimators
+
+    seconds = {}
+
+    def estimate_fn(disc, u, type_, level):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eta = SWIPDGEstimators.estimate(disc.space, disc.boundary_info, disc.problem, u, type_)
+        torch.cuda.synchronize()
+        seconds.setdefault(level, {})[type_] = time.perf_counter() - t0
+        return eta
+
+    return estimate_fn, seconds
+
+
+def rt1_projection_defect(d, u):
+    """How far div t_h is from Pi_P1 f for the RT1 reconstruction t_h of u's
+    SWIPDG flux: (mean defect, centred defect, seconds).  The mean defect is
+    max_T |int_T (f - div t_h)| / int_T (|f| + |div t_h|): the scheme's local
+    conservation, exact for the exact discrete solution and otherwise the
+    solve's algebraic residual, as for RT0.  The centred defect is the same
+    with the weights x - c_T and y - c_T (and |x - c_T|, |y - c_T| in the
+    scale): the RT1 construction's interior moments, exact up to rounding
+    whatever u is.  Also the reconstruction's seconds."""
+    from dune_hdd_tpu_torch.estimators import rt1_divergence_at, rt1_flux_reconstruction
+    from dune_hdd_tpu_torch.functions.base import freeze_function
+    from dune_hdd_tpu_torch.ops.assembly import cell_quadrature
+
+    lam, kap, force, g_d = (freeze_function(getattr(d.problem, n)) for n in (
+        "diffusion_factor", "diffusion_tensor", "force", "dirichlet"))
+    grid = d.space.grid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coeffs = rt1_flux_reconstruction(d.space, u, lam, kap,
+                                     np.nonzero(d.boundary_info.dirichlet_faces)[0],
+                                     np.zeros(0, dtype=np.int64), g_d, force_fn=force)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    qp, qw = cell_quadrature(grid, 6, u.device)
+    div = rt1_divergence_at(grid, coeffs, qp)
+    f = force(qp)
+    mag = qw * (f.abs() + div.abs())
+
+    def defect(w):
+        return (torch.sum(qw * (f - div) * w, dim=1).abs()
+                / torch.sum(mag * w.abs(), dim=1)).max().item()
+
+    centred = qp - d.space.tensor(grid.cell_centroids)[:, None, :]
+    return (defect(torch.ones_like(f)), max(defect(centred[..., 0]), defect(centred[..., 1])),
+            seconds)
+
+
+def higher_nd_kernels(d, label):
+    """The two SpMV kernels at this discretization's nd on its scaled plane
+    operator (the shapes its stencil_cg path gives plane_spmv): plane_spmv
+    against its plain version in f64 and f32, timed beside the BSR library
+    call; a power iteration through plane_spmv in f32 and one through
+    StructuredBlockEll.matvec (structured_spmv, f32) on the same operator,
+    their launch counts set to 0 just before and read just after, each
+    against the f64 plane path's lambda_max; structured_spmv timed beside
+    the BSR call.  Returns (kernels-line rows, max abs error in f64)."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.kernels.structured_spmv import (
+        structured_spmv, structured_spmv_reference)
+    from dune_hdd_tpu_torch.la.block_ell import StructuredBlockEll
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll
+
+    system = d.stencil_system()
+    S, B = system.S, system.B
+    nd, nc = S.nd, S.num_cells
+    err64 = check_plane_spmv_at(system, label)
+    times, err = time_plane_spmv(S, B, label)
+    b = B / torch.linalg.norm(B)
+    lam64 = power_lambda(S.matvec, b)
+    S32 = StencilBlockEll(S.planes.float(), S.plan)
+    case = f"nd{nd}_f32"
+    start_path()
+    lam32 = power_lambda(S32.matvec, b.float())
+    end_path()
+    f32_launches = plane_spmv.case_launches[case]
+    offsets = d.__dict__["_stencil_order"].offsets
+    A = StructuredBlockEll(None, S32.planes.reshape(4, nd, nd, nc).permute(3, 0, 1, 2), offsets)
+    structured_spmv.launches = 0
+    lam_st = power_lambda(A.matvec, flat(b).float())
+    st_launches = structured_spmv.launches
+    for what, lam, rel in (("plane f32", lam32, 1e-4), ("structured f32", lam_st, 1e-4)):
+        if not abs(lam - lam64) <= rel * abs(lam64):
+            raise AssertionError(f"{label}: {what} power iteration {lam} != f64 plane {lam64}")
+    x = flat(B.float())
+    y = structured_spmv(A.planes, x, A.offsets)
+    st_err = rel_check(f"structured_spmv vs plain ({label})", y,
+                       structured_spmv_reference(A.planes, x, A.offsets), 1e-5)
+    rel_check(f"structured_spmv vs plane_spmv ({label})", y, flat(S32.matvec(B.float())), 1e-5)
+    lib = bsr_operator(S32.planes, S.plan)
+    e_lib = rel_check(f"BSR library call vs structured_spmv ({label})", lib @ x, y, 1e-4)
+    st = timed("structured_spmv", f"{label} f32", lambda: structured_spmv(A.planes, x, A.offsets),
+               lambda: structured_spmv_reference(A.planes, x, A.offsets), lambda: lib @ x,
+               (A.planes.numel() + 2 * x.numel()) * 4, 2 * A.planes.numel(), torch.float32,
+               dofs=x.numel(), library_max_abs_diff=f"{e_lib:.3e}")
+    log("higher_nd_paths", case=label, nd=nd, dofs=B.numel(), power_iterations=20,
+        lambda_f64=f"{lam64:.8e}", lambda_plane_f32=f"{lam32:.8e}",
+        lambda_structured_f32=f"{lam_st:.8e}", plane_f32_launches=f32_launches,
+        structured_launches=st_launches)
+    rows = {f"plane_spmv_nd{nd}_f64": (times["float64"], err64),
+            f"plane_spmv_nd{nd}_f32": (dict(times["float32"], launches=f32_launches), err),
+            f"structured_spmv_nd{nd}": (dict(st, launches=st_launches), st_err)}
+    del system, S, B, S32, A, lib, x, y
+    return rows, max(err64, err)
+
+
+def phase_esv2007_higher(dev, tc, order):
+    """SWIPDG P<order> on the ESV2007 ALU-conforming hierarchy, levels 0-6
+    (P2) or 0-5 (P3), through EocStudy with stencil_cg (4x4 macro, 1e-12,
+    float64: plane_spmv at nd = 6 or 10), its launch counts set to 0 just
+    before and read just after.  P2: the RT1 estimators at every level.
+    Gates: the EOC bars of the reference's order-2/3 tests; P2's estimator
+    rates and efficiency and div t_h = Pi_P1 f at the last level.  Returns
+    (kernels-line rows, f64 launches, max abs error)."""
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.studies import EocStudy
+
+    levels = HIGHER_LEVELS[order]
+    nd = {2: 6, 3: 10}[order]
+    types = P2_ESTIMATORS if order == 2 else ()
+    estimate_fn, estimator_seconds = timed_estimates(types)
+    max_iter = 100000
+    options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
+
+    def factory(grid, boundary_info, problem, device):
+        return SWIPDGDiscretization(grid, boundary_info, problem, order=order,
+                                    only_these_products=(), device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    study = EocStudy(truncated(tc, levels), factory, estimator_types=types,
+                     estimate_fn=estimate_fn, solver_options=options, device=dev)
+    start_path()
+    results = study.run(verbose=False)
+    end_path()
+    launches = plane_spmv.case_launches[f"nd{nd}_f64"]
+    tag = f"esv2007_p{order}"
+    log_levels(tag + "_level", study, results, estimator_seconds if types else None)
+    for r, info in enumerate(study.level_info):
+        if not (info["type"] == "stencil_cg" and 0 < info["iterations"] < max_iter):
+            raise AssertionError(f"{tag} level {r}: {info}")
+    if launches <= 0:
+        raise AssertionError(f"{tag}: the study did not launch plane_spmv at nd = {nd}")
+    eocs = rates(study, ("L2", "H1_semi", "energy") + types[:-1])  # all but eta_ESV2007
+    if order == 2:
+        bars = {"L2": 2.8, "H1_semi": 1.9, "energy": 1.85, "eta_NC_ESV2007": 1.85,
+                "eta_DF_ESV2007": 1.85, "eta_R_ESV2007_*": 2.7}
+        failed = {k: v for k, v in eocs.items() if min(v) <= bars[k]}
+        eff = [e / h for e, h in zip(results["eta_ESV2007"], results["energy"])]
+        if failed or not all(1.0 <= e < 2.0 for e in eff):
+            raise AssertionError(f"{tag}: EOC {failed} or efficiency {eff}")
+        mean, centred, rt1_s = rt1_projection_defect(study.discretizations[-1],
+                                                     study.solutions[-1])
+        if not (centred <= 1e-8 and mean <= 1e-5):
+            raise AssertionError(f"{tag} level {levels}: div t_h != Pi_P1 f (mean {mean:.3e}, "
+                                 f"centred moments {centred:.3e})")
+        fields = dict(eff_ESV2007=repr([round(e, 4) for e in eff]),
+                      rt1_mean_max_rel_defect=f"{mean:.3e}",
+                      rt1_centred_moment_max_rel_defect=f"{centred:.3e}",
+                      rt1_reconstruction_seconds=f"{rt1_s:.3f}")
+    else:
+        if not (min(eocs["L2"][:4]) > 3.7 and min(eocs["H1_semi"]) > 2.8):
+            raise AssertionError(f"{tag}: EOC {eocs}")
+        fields = dict(L2_last_level=f"{results['L2'][-1]:.6e}")
+    log(tag, levels=f"0-{levels}", launches=launches,
+        **{f"eoc_{k}": repr([round(e, 4) for e in v]) for k, v in eocs.items()}, **fields,
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
+    d = study.discretizations[-1]
+    del study, results
+    rows, err = higher_nd_kernels(d, f"P{order} level {levels}")
+    rows[f"plane_spmv_nd{nd}_f64"][0]["launches"] = launches
+    del d
+    torch.cuda.empty_cache()
+    return rows, err
+
+
+def phase_esv2007_cube(dev):
+    """SWIPDG Q1 (levels 0-6) and Q2 (levels 0-5) on the ESV2007 cube (quad)
+    hierarchy with stencil_cg, which is block_cg.jacobi on a grid with no
+    structured order, to 1e-12.  Q1: the recorded cube table (errors at
+    levels 0-3, the six estimators at 0-2) within 5e-3, EOC above 1.9 (L2)
+    and 0.95 (H1_semi) at levels 4-6, RT0-on-rectangles conservation at
+    level 6.  Q2: EOC above 2.8 (L2) and 1.9 (H1_semi)."""
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.studies import EocStudy, expected_results
+    from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase
+
+    t0 = time.perf_counter()
+    tc = ESV2007TestCase(num_refinements=CUBE_LEVELS[1], grid_variant="cube")
+    hierarchy_s = time.perf_counter() - t0
+    options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": 100000}
+    for order, levels in CUBE_LEVELS.items():
+        types = ESV_ESTIMATORS if order == 1 else ()
+        estimate_fn, estimator_seconds = timed_estimates(types)
+
+        def factory(grid, boundary_info, problem, device, order=order):
+            return SWIPDGDiscretization(grid, boundary_info, problem, order=order,
+                                        only_these_products=(), device=device)
+
+        torch.cuda.reset_peak_memory_stats()
+        study = EocStudy(truncated(tc, levels), factory, estimator_types=types,
+                         estimate_fn=estimate_fn, solver_options=options, device=dev)
+        results = study.run(verbose=False)
+        tag = f"esv2007_cube_q{order}"
+        log_levels(tag + "_level", study, results, estimator_seconds if types else None)
+        if any(i["type"] != "block_cg.jacobi" for i in study.level_info):
+            raise AssertionError(f"{tag}: {study.level_info}")
+        eocs = rates(study, ("L2", "H1_semi"))
+        fields = {}
+        if order == 1:
+            mismatch = {}
+            for k, v in results.items():
+                want = expected_results("ESV2007", "cube", 1, k)
+                if want is None or not np.allclose(v[:len(want)], want, rtol=CUBE_VALUE_RTOL,
+                                                   atol=0):
+                    mismatch[k] = (v[:4], want)
+            if mismatch or not (min(eocs["L2"][3:]) > 1.9 and min(eocs["H1_semi"][3:]) > 0.95):
+                raise AssertionError(f"{tag}: table {mismatch} or EOC {eocs}")
+            conservation, rt0_s = rt0_conservation(study.discretizations[-1],
+                                                   study.solutions[-1])
+            if not conservation <= 1e-5:
+                raise AssertionError(f"{tag} level {levels}: div t_h != P0 f ({conservation:.3e})")
+            fields = dict(table="levels 0-3 errors, 0-2 estimators ok (rel 5e-3)",
+                          rt0_conservation_max_rel_dev=f"{conservation:.3e}",
+                          rt0_reconstruction_seconds=f"{rt0_s:.3f}")
+        elif not (min(eocs["L2"]) > 2.8 and min(eocs["H1_semi"]) > 1.9):
+            raise AssertionError(f"{tag}: EOC {eocs}")
+        log(tag, levels=f"0-{levels}", hierarchy_host_seconds=f"{hierarchy_s:.2f}",
+            **{f"eoc_{k}": repr([round(e, 4) for e in v]) for k, v in eocs.items()}, **fields,
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
+        del study, results
+        torch.cuda.empty_cache()
+
+
+def phase_cg_higher(dev, tc_alu):
+    """CGDiscretization P2 and P3 on the ESV2007 ALU hierarchy and Q2 on the
+    cube hierarchy, levels 0-5, Jacobi CG to 1e-12: the EOC bars of the
+    reference's order-2/3 tests (P2/Q2: L2 > 2.8, H1_semi > 1.9; P3: L2 >
+    3.7 up to level 4, H1_semi > 2.8)."""
+    from dune_hdd_tpu_torch.discretizations import CGDiscretization
+    from dune_hdd_tpu_torch.studies import EocStudy
+    from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase
+
+    levels = CG_HIGHER_LEVELS
+    options = {"type": "cg.jacobi", "precision": 1e-12, "max_iter": 200000}
+    cube = ESV2007TestCase(num_refinements=levels, grid_variant="cube")
+    for label, tc, order in (("P2", tc_alu, 2), ("P3", tc_alu, 3), ("Q2", cube, 2)):
+        def factory(grid, boundary_info, problem, device, order=order):
+            return CGDiscretization(grid, boundary_info, problem, order=order,
+                                    only_these_products=(), device=device)
+
+        torch.cuda.reset_peak_memory_stats()
+        study = EocStudy(truncated(tc, levels), factory, norms=("L2", "H1_semi"),
+                         solver_options=options, device=dev)
+        results = study.run(verbose=False)
+        log_levels(f"cg_{label}_level", study, results)
+        eocs = rates(study, ("L2", "H1_semi"))
+        l2_bar, h1_bar, l2_upto = (3.7, 2.8, 4) if order == 3 else (2.8, 1.9, levels)
+        if not (min(eocs["L2"][:l2_upto]) > l2_bar and min(eocs["H1_semi"]) > h1_bar):
+            raise AssertionError(f"CG {label}: EOC {eocs}")
+        log(f"cg_{label}", levels=f"0-{levels}",
+            **{f"eoc_{k}": repr([round(e, 4) for e in v]) for k, v in eocs.items()},
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del study, results
+
+
+def phase_interval(dev):
+    """Interval SWIPDG orders 1-3 on the card: -u'' = pi^2 sin(pi x) on 8, 16
+    and 32 cells with the EOC bars of the reference's interval test (order
+    1: L2 > 1.8, H1_semi > 0.8; order 2: 2.8, 1.8), and order 3 exact for a
+    cubic."""
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.functions.base import (
+        ConstantFunction, LambdaFunction, constant_matrix)
+    from dune_hdd_tpu_torch.grid.structured import interval_grid
+    from dune_hdd_tpu_torch.ops.norms import error_norms
+    from dune_hdd_tpu_torch.problems.interfaces import Problem
+    from dune_hdd_tpu_torch.studies import eoc_rates
+
+    bi = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
+    exact = LambdaFunction(lambda x: torch.sin(np.pi * x[..., 0]), order=8)
+    sine = Problem(ConstantFunction(1.0), constant_matrix(1.0, dim=1),
+                   LambdaFunction(lambda x: np.pi ** 2 * torch.sin(np.pi * x[..., 0]), order=8),
+                   ConstantFunction(0.0), ConstantFunction(0.0))
+    out = {}
+    for order, (l2_bar, h1_bar) in ((1, (1.8, 0.8)), (2, (2.8, 1.8)), (3, (None, None))):
+        errs = [error_norms(d.space, d.solve(options={"type": "direct"}), exact)
+                for d in (SWIPDGDiscretization(interval_grid(0, 1, n), bi, sine, order=order,
+                                               device=dev) for n in (8, 16, 32))]
+        eoc = {k: eoc_rates([e[k] for e in errs]) for k in ("L2", "H1_semi")}
+        if l2_bar is not None and not (np.mean(eoc["L2"]) > l2_bar
+                                       and np.mean(eoc["H1_semi"]) > h1_bar):
+            raise AssertionError(f"interval order {order}: EOC {eoc}")
+        out[order] = {k: [round(r, 4) for r in v] for k, v in eoc.items()}
+    cubic = Problem(ConstantFunction(1.0), constant_matrix(1.0, dim=1),
+                    LambdaFunction(lambda x: -6.0 * x[..., 0], order=1),
+                    LambdaFunction(lambda x: x[..., 0] ** 3, order=3), ConstantFunction(0.0))
+    d = SWIPDGDiscretization(interval_grid(0, 1, 4), bi, cubic, order=3, device=dev)
+    e = error_norms(d.space, d.solve(options={"type": "direct"}),
+                    LambdaFunction(lambda x: x[..., 0] ** 3, order=3))
+    if not (e["L2"] < 1e-9 and e["H1_semi"] < 1e-8):
+        raise AssertionError(f"interval order 3 is not exact for a cubic: {e}")
+    log("interval", cells="8, 16, 32", eoc=repr(out),
+        order3_cubic_errors=f"L2 {e['L2']:.3e}, H1_semi {e['H1_semi']:.3e}")
+
+
+def phase_gmres(dev, tc):
+    """gmres and gmres.jacobi (restart 50; maxiter counts restarts) on the
+    ESV2007 SWIPDG P1 and CG P1 systems of level 3, to a relative 1e-12:
+    each solution within 1e-8 (max, relative) of the direct solve."""
+    from dune_hdd_tpu_torch.discretizations import CGDiscretization, SWIPDGDiscretization
+    from dune_hdd_tpu_torch.la.solvers import solver_options
+
+    level = GMRES_LEVEL
+    grid = tc.level_grid(level)
+    for name, cls in (("SWIPDG", SWIPDGDiscretization), ("CG", CGDiscretization)):
+        d = cls(grid, tc.boundary_info(), tc.problem, only_these_products=(), device=dev)
+        u_direct = d.solve(options={"type": "direct"})
+        for type_ in ("gmres", "gmres.jacobi"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u = d.solve(options=dict(solver_options(type_), precision=1e-12))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            info = d.last_solve_info
+            diff = ((u - u_direct).abs().max() / u_direct.abs().max()).item()
+            if not diff <= 1e-8:
+                raise AssertionError(f"{name} {type_}: {diff:.3e} from direct ({info})")
+            log("gmres", discretization=name, level=level, dofs=d.space.num_dofs, type=type_,
+                restart=50, arnoldi_steps=info["iterations"], restarts=info["restarts"],
+                rel_max_diff_vs_direct=f"{diff:.3e}", seconds=f"{seconds:.3f}")
+
+
 def count_device_ops(fn):
     """Kernels and copies one call puts on the card, from torch.profiler's
     device events."""
@@ -1302,9 +1704,8 @@ def main():
     A6, b6, structured_err = phase_structured_vs_plain(dev, bench6, S6, B6)
     probe_err = phase_probe_vs_plain(dev)
 
-    launches = {"plane_spmv": 0}
-    _, _, n = phase_main_path(dev, 6, repeats=3)
-    launches["plane_spmv"] += n
+    launches = {}
+    phase_main_path(dev, 6, repeats=3)
     launches["structured_spmv"] = phase_structured_path(A6, S6, B6)
     launches["probe"] = phase_probe_path(dev)
     phase_kernel_path_vs_plain_path(dev)
@@ -1312,50 +1713,65 @@ def main():
     plane_err = max(plane_err, err)
     del bench6, S6, B6, A6, b6
 
-    r, (S8, _), n = phase_main_path(dev, 8, repeats=3)
-    launches["plane_spmv"] += n
+    r, (S8, _), _ = phase_main_path(dev, 8, repeats=3)
     plane_err = max(plane_err, phase_symmetric_checks(S8))
     del r, S8
     torch.cuda.empty_cache()
 
-    r, (S10, B10), n = phase_main_path(dev, 10, repeats=3)
-    launches["plane_spmv"] += n
+    r, (S10, B10), _ = phase_main_path(dev, 10, repeats=3)
     del r
     plane_times, err = time_plane_spmv(S10, B10, "12.29M symmetric", W=S10.sym_planes)
-    plane_ms, plane_err = plane_times["float32"], max(plane_err, err)
+    plane_err = max(plane_err, err)
     del S10, B10
     torch.cuda.empty_cache()
 
-    n, err, tc = phase_esv2007_study(dev)
-    launches["plane_spmv"] += n
+    _, err, tc = phase_esv2007_study(dev)
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
     phase_esv2007_cg(dev, tc)
-    n, err = phase_block_esv2007_table(dev, tc)
-    launches["plane_spmv"] += n
+    _, err = phase_block_esv2007_table(dev, tc)
     plane_err = max(plane_err, err)
+    torch.cuda.empty_cache()
+    higher_rows = {}
+    for order in (2, 3):
+        rows, err = phase_esv2007_higher(dev, tc, order)
+        higher_rows.update(rows)
+    phase_esv2007_cube(dev)
+    phase_cg_higher(dev, tc)
+    phase_interval(dev)
+    phase_gmres(dev, tc)
     del tc
     torch.cuda.empty_cache()
     phase_os2014_parametric(dev)
     phase_spe10_parametric_block(dev)
     torch.cuda.empty_cache()
-    launches["plane_spmv"] += phase_block_provenance(dev)
-    n, err, thermalblock = phase_thermalblock_online(dev)
-    launches["plane_spmv"] += n
+    phase_block_provenance(dev)
+    _, err, thermalblock = phase_thermalblock_online(dev)
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
-    launches["plane_spmv"] += phase_rb_thermalblock(dev, *thermalblock)
+    phase_rb_thermalblock(dev, *thermalblock)
     del thermalblock
     torch.cuda.empty_cache()
     phase_adaptive_spe10(dev)
     phase_adaptive_os2014(dev)
-    log("done", seconds=f"{time.perf_counter() - _T0:.1f}")
+    log("done", seconds=f"{time.perf_counter() - _T0:.1f}",
+        plane_spmv_launches=repr(dict(PATH_LAUNCHES)))
 
-    rows = [("plane_spmv", plane_err, plane_ms), ("structured_spmv", structured_err, structured_ms),
-            ("probe", probe_err, probe_ms)]
+    rows = {"plane_spmv_nd3_f32": (dict(plane_times["float32"],
+                                        launches=PATH_LAUNCHES["nd3_f32"]), plane_err),
+            "plane_spmv_nd3_f64": (dict(plane_times["float64"],
+                                        launches=PATH_LAUNCHES["nd3_f64"]), plane_err),
+            "structured_spmv": (dict(structured_ms, launches=launches["structured_spmv"]),
+                                structured_err),
+            "probe": (dict(probe_ms, launches=launches["probe"]), probe_err),
+            **higher_rows}
+    for name, (row, _) in rows.items():
+        if not row["launches"] > 0:
+            raise AssertionError(f"{name}: no launch on its path")
     print(json.dumps({"kernels": [dict(
-        name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
-        launches=launches[name], max_abs_err=err, **times) for name, err, times in rows]}))
+        name=name, route="cuda", source=KERNELS[name.split("_nd")[0]][0],
+        replaces=KERNELS[name.split("_nd")[0]][1], max_abs_err=err, **row)
+        for name, (row, err) in rows.items()]}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

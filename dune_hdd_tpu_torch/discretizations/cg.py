@@ -1,4 +1,4 @@
-"""Continuous Lagrange (CG) discretization, P1 on triangles.
+"""Continuous Lagrange (CG) discretization, orders 1-3.
 
 Counterpart of ``dune_hdd_tpu/discretizations/cg.py`` (the reference's
 ``discretizations/cg.hh:95-419``): per affine component the elliptic
@@ -7,8 +7,7 @@ Dirichlet projection, the Dirichlet shift ``rhs -= A_p g_q`` with
 coefficient-product bookkeeping, and symmetric row and column elimination so
 the frozen operator stays SPD for the CG Krylov solver.  Everything is
 assembled on ``device`` (the card unless the caller asks for the CPU) in
-``dtype``.  Orders 2 and 3 wait for the P2/P3 spaces (ROADMAP queue 1,
-slice 2 c).
+``dtype``.
 """
 from __future__ import annotations
 
@@ -33,7 +32,7 @@ from ..ops.assembly import (
     scatter_cell_vectors,
     volume_pattern,
 )
-from ..ops.spaces import NOT_PORTED, cg_space
+from ..ops.spaces import cg_space
 from ..parameters import ProductFunctional
 from ..problems.interfaces import Problem
 from .base import StationaryDiscretization
@@ -66,18 +65,38 @@ class CGDiscretization(StationaryDiscretization):
         device="cuda",
         dtype: torch.dtype = torch.float64,
     ):
-        if order != 1:
-            raise NotImplementedError(NOT_PORTED.format(what=f"CG order {order}"))
         device = resolve_device(device)
         if not isinstance(boundary_info, BoundaryInfo):
             boundary_info = make_boundary_info(grid, boundary_info)
         space = cg_space(grid, order, device=device, dtype=dtype)
         products_wanted = (tuple(only_these_products) if only_these_products is not None
                            else _ALL_PRODUCTS)
-        # P1 nodal structure: the dofs are the vertices
-        dir_vert = boundary_info.dirichlet_vertices
+        # nodal structure: vertices (order 1); + edge midpoints (order 2; Q2
+        # also cell centres); + two edge nodes per face in canonical
+        # (ascending global vertex id) order and the cell centres (order 3).
+        # The dirichlet mask covers every boundary nodal dof.
+        if order == 3:
+            fv = np.sort(grid.faces.astype(np.int64), axis=1)
+            vmin, vmax = grid.vertices[fv[:, 0]], grid.vertices[fv[:, 1]]
+            edge_pts = np.stack([(2 * vmin + vmax) / 3.0, (vmin + 2 * vmax) / 3.0],
+                                axis=1).reshape(-1, 2)
+            dir_vert = np.concatenate([boundary_info.dirichlet_vertices,
+                                       np.repeat(boundary_info.dirichlet_faces, 2),
+                                       np.zeros(grid.num_cells, dtype=bool)])
+            points = np.concatenate([grid.vertices, edge_pts, grid.cell_centroids], axis=0)
+        elif order == 2:
+            parts_mask = [boundary_info.dirichlet_vertices, boundary_info.dirichlet_faces]
+            parts_pts = [grid.vertices, grid.face_centroids]
+            if grid.cell_type == "quad":  # Q2 centre bubbles: never Dirichlet
+                parts_mask.append(np.zeros(grid.num_cells, dtype=bool))
+                parts_pts.append(grid.cell_centroids)
+            dir_vert = np.concatenate(parts_mask)
+            points = np.concatenate(parts_pts, axis=0)
+        else:
+            dir_vert = boundary_info.dirichlet_vertices
+            points = grid.vertices
         dir_mask = torch.as_tensor(dir_vert).to(device)
-        vertices = space.tensor(grid.vertices)
+        vertices = space.tensor(points)
         pattern = volume_pattern(space)
 
         # -- dirichlet projection per affine dirichlet component (cg.hh:193-221)

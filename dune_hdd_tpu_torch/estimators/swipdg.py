@@ -1,4 +1,4 @@
-"""ESV2007 a-posteriori error estimators for SWIPDG, P1 on triangles, RT0.
+"""ESV2007 a-posteriori error estimators for SWIPDG.
 
 Counterpart of ``dune_hdd_tpu/estimators/swipdg.py`` (the reference's
 ``estimators/swipdg.hh``), on the space's device in its dtype:
@@ -18,12 +18,18 @@ Counterpart of ``dune_hdd_tpu/estimators/swipdg.py`` (the reference's
 ``estimate`` returns the global value (a float); ``estimate_local`` the
 per-element squared indicators scaled by 1/eta^2 (a numpy array).
 
+Beyond the reference's P1 / RT0 on triangles, as the JAX package: P2 with
+the conforming-P2 Oswald average (vertex and edge-midpoint nodes) and an RT1
+equilibrated flux (edge dofs the P1(e) moments of the SWIPDG numerical
+flux, interior dofs enforcing div t = Pi_P1 f); axis-aligned quads with the
+Q1 Oswald vertex average and RT0 on rectangles (t = (a + bx, c + dy) from
+the four outward face fluxes).  RT1 is triangle-only, so the order-2 R_* and
+DF types raise on quads.
+
 The grid tables (cell vertices, face lists, the RT0 sign and length factors)
 are copied to the device once per grid and kept on it.  Vertex sums of the
 Oswald average go through a host-built padded table of each vertex's
-(cell, corner) entries and a row sum: deterministic on every device.  The
-quad RT0 and the RT1 branches of the reference (Q1 and P2 spaces) wait for
-those spaces (ROADMAP queue 1, slice 2 b and c).
+(cell, corner) entries and a row sum: deterministic on every device.
 """
 from __future__ import annotations
 
@@ -35,10 +41,10 @@ import torch
 
 from ..functions.base import Function, freeze_function
 from ..grid.boundaryinfo import BoundaryInfo
-from ..grid.structured import TRIANGLE, Grid
+from ..grid.structured import QUAD, TRIANGLE, Grid
 from ..ops.assembly import cell_quadrature, cell_shape_gradients, diffusion_pairs, face_quadrature
 from ..ops.quadrature import edge_rule
-from ..ops.spaces import NOT_PORTED, Space
+from ..ops.spaces import Space
 from ..ops.swipdg import boundary_sigma, default_beta, inner_sigma
 
 __all__ = ["SWIPDGEstimators", "oswald_interpolation", "oswald_interpolation_nodal",
@@ -100,13 +106,42 @@ def oswald_interpolation(space: Space, u: torch.Tensor,
     return torch.where(mask, vals.new_zeros(()), sums / counts)
 
 
+def _face_sides(grid: Grid):
+    """[NF, 2] flat (cell, local face) entries of each face's inside and
+    outside cell, the outside padded with NC * nfc (an appended zero), and
+    the counts [NF]."""
+    nfc = grid.faces_per_cell
+    fc, fl = grid.face_cells.astype(np.int64), grid.face_local.astype(np.int64)
+    table = np.where(fc >= 0, fc * nfc + fl, grid.num_cells * nfc)
+    return table, (fc >= 0).sum(axis=1).astype(np.float64)
+
+
 def oswald_interpolation_nodal(space: Space, u: torch.Tensor,
                                boundary_info: BoundaryInfo) -> torch.Tensor:
-    """DG -> conforming nodal averaging, returned cell-wise [NC, nd]: for P1
-    the vertex averages (GDT::Operators::OswaldInterpolation)."""
-    grid = space.grid
+    """DG -> conforming nodal averaging, returned cell-wise [NC, nd].
+
+    P1/Q1: vertex averages (GDT::Operators::OswaldInterpolation).  P2/Q2:
+    the conforming node set is vertices + edge midpoints (+ the cell-local
+    Q2 centre, kept as u's own value); edge nodes average over their (<= 2)
+    cells, and every node on a Dirichlet face is 0."""
+    grid, dev = space.grid, u.device
     vtx = oswald_interpolation(space, u, boundary_info.dirichlet_vertices)
-    return vtx[_on(grid, "cells", lambda: grid.cells, u.device)]
+    v_cells = vtx[_on(grid, "cells", lambda: grid.cells, dev)]
+    if space.order == 1:
+        return v_cells
+    # edge-midpoint nodes live on the local faces (dofs nvc:2*nvc)
+    nvc = grid.vertices_per_cell
+    u_cells = u[_on(space, "cell_dofs", lambda: space.cell_dofs, dev)]
+    mid_vals = u_cells[:, nvc:2 * nvc].reshape(-1)
+    table = _on(grid, "face_sides", lambda: _face_sides(grid)[0], dev)
+    counts = _on(grid, "face_counts", lambda: _face_sides(grid)[1], dev, u.dtype)
+    mid = torch.cat([mid_vals, mid_vals.new_zeros(1)])[table].sum(dim=1) / counts
+    mask = torch.as_tensor(np.asarray(boundary_info.dirichlet_faces, dtype=bool)).to(dev)
+    mid = torch.where(mask, mid.new_zeros(()), mid)
+    parts = [v_cells, mid[_on(grid, "cell_faces", lambda: grid.cell_faces, dev)]]
+    if grid.cell_type == QUAD:
+        parts.append(u_cells[:, 2 * nvc:])  # Q2 centre node: cell-local
+    return torch.cat(parts, dim=-1)
 
 
 def min_diffusion_eigenvalue(lam_fn: Function, kap_fn: Function, grid: Grid, qorder: int = 2,
@@ -326,11 +361,43 @@ def _rt0_cell_data(grid: Grid, mean_flux: torch.Tensor):
     return dofs, P
 
 
+def _rt0_quad_face_values(grid: Grid, mean_flux: torch.Tensor):
+    """Per-cell RT0 component endpoint values on an axis-aligned rectangle:
+    ((tx0, tx1), (ty0, ty1), lo [NC,2], ext [NC,2]).  t = (tx(x), ty(y)),
+    each linear in its own coordinate, from the 4 outward face-flux
+    integrals: tx(x0) = -D_west/hy, tx(x1) = D_east/hy, and in y alike."""
+    dev, dt = mean_flux.device, mean_flux.dtype
+    dofs = _rt0_dofs(grid, mean_flux)  # [NC, 4]
+
+    def sides():
+        # classify each local face by its outward normal (exactly axis-aligned)
+        n_out = grid.face_normals[grid.cell_faces] * _rt0_outward_sign(grid)[..., None]
+        return np.stack([n_out[..., 0] < -0.5, n_out[..., 0] > 0.5,
+                         n_out[..., 1] < -0.5, n_out[..., 1] > 0.5]).astype(np.float64)
+
+    west, east, south, north = _on(grid, "rt0_quad_sides", sides, dev, dt)
+    verts = grid.cell_vertices
+    lo = _on(grid, "rt0_quad_lo", lambda: verts.min(axis=1), dev, dt)
+    ext = _on(grid, "rt0_quad_ext", lambda: verts.max(axis=1) - verts.min(axis=1), dev, dt)
+    hx, hy = ext[:, 0], ext[:, 1]
+    tx0 = -torch.sum(dofs * west, dim=1) / hy
+    tx1 = torch.sum(dofs * east, dim=1) / hy
+    ty0 = -torch.sum(dofs * south, dim=1) / hx
+    ty1 = torch.sum(dofs * north, dim=1) / hx
+    return (tx0, tx1), (ty0, ty1), lo, ext
+
+
 def rt0_evaluate(grid: Grid, mean_flux: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
     """RT0 field at per-cell points qp [NC, k, 2] -> [NC, k, 2]:
-    t|_T(x) = sum_e D_e (x - P_e) / (2|T|) on triangles."""
-    if grid.cell_type != TRIANGLE:
-        raise NotImplementedError(NOT_PORTED.format(what="RT0 on quads"))
+    t|_T(x) = sum_e D_e (x - P_e) / (2|T|) on triangles; on axis-aligned
+    rectangles t = (tx(x), ty(y)), each component linear in its own
+    coordinate."""
+    if grid.cell_type == QUAD:
+        (tx0, tx1), (ty0, ty1), lo, ext = _rt0_quad_face_values(grid, mean_flux)
+        xi = (qp - lo[:, None, :]) / ext[:, None, :]  # [NC, k, 2]
+        tx = tx0[:, None] + xi[..., 0] * (tx1 - tx0)[:, None]
+        ty = ty0[:, None] + xi[..., 1] * (ty1 - ty0)[:, None]
+        return torch.stack([tx, ty], dim=-1)
     dofs, P = _rt0_cell_data(grid, mean_flux)
     inv2a = _on(grid, "rt0_inv_2area", lambda: 1.0 / (2.0 * grid.cell_volumes),
                 mean_flux.device, mean_flux.dtype)
@@ -339,17 +406,132 @@ def rt0_evaluate(grid: Grid, mean_flux: torch.Tensor, qp: torch.Tensor) -> torch
 
 
 def rt0_divergence(grid: Grid, mean_flux: torch.Tensor) -> torch.Tensor:
-    """div t per cell [NC] = sum_e D_e / |T|."""
+    """div t per cell [NC] = sum_e D_e / |T| (on triangles and on
+    axis-aligned rectangles alike)."""
     vol = _on(grid, "cell_volumes", lambda: grid.cell_volumes, mean_flux.device, mean_flux.dtype)
     return torch.sum(_rt0_dofs(grid, mean_flux), dim=1) / vol
 
 
-def rt1_flux_reconstruction(*args, **kwargs):
-    """The RT1 reconstruction of the order-2 estimators needs P2 spaces."""
-    raise NotImplementedError(NOT_PORTED.format(what="the RT1 flux reconstruction"))
+# ---------------------------------------------------------------------------
+# RT1 reconstruction (the optimal-rate estimators of the P2 spaces)
+# ---------------------------------------------------------------------------
+
+# monomial model fields on the scaled cell frame xi = (x - c_T)/h_T:
+#   Phi = [(1,0), (0,1), (xi,0), (eta,0), (0,xi), (0,eta),
+#          xi*(xi,eta), eta*(xi,eta)]
+# div Phi * h_T = [0, 0, 1, 0, 0, 1, 3 xi, 3 eta]
 
 
-rt1_evaluate = rt1_divergence_at = rt1_flux_reconstruction
+def _rt1_fields(xi: torch.Tensor) -> torch.Tensor:
+    """Phi at scaled points xi [..., 2] -> [..., 8, 2]."""
+    one = torch.ones_like(xi[..., 0])
+    zero = torch.zeros_like(one)
+    x, y = xi[..., 0], xi[..., 1]
+    fields = [(one, zero), (zero, one), (x, zero), (y, zero), (zero, x), (zero, y),
+              (x * x, x * y), (x * y, y * y)]
+    return torch.stack([torch.stack(f, dim=-1) for f in fields], dim=-2)
+
+
+def _rt1_divs(xi: torch.Tensor) -> torch.Tensor:
+    """h_T * div Phi at scaled points -> [..., 8]."""
+    one = torch.ones_like(xi[..., 0])
+    zero = torch.zeros_like(one)
+    x, y = xi[..., 0], xi[..., 1]
+    return torch.stack([zero, zero, one, zero, zero, one, 3 * x, 3 * y], dim=-1)
+
+
+def _rt1_frame(grid: Grid, device, dtype):
+    """(centroids [NC, 2], diameters [NC]) of the scaled cell frame."""
+    return (_on(grid, "cell_centroids", lambda: grid.cell_centroids, device, dtype),
+            _on(grid, "cell_diameters", lambda: grid.cell_diameters, device, dtype))
+
+
+def rt1_flux_reconstruction(
+    space: Space,
+    u: torch.Tensor,
+    lam_fn: Function,
+    kap_fn: Function,
+    dirichlet_faces: np.ndarray,
+    neumann_faces: np.ndarray,
+    g_d: Optional[Function] = None,
+    g_n: Optional[Function] = None,
+    force_fn: Optional[Function] = None,
+    qorder: int = 6,
+    weight_lam_fn: Optional[Function] = None,
+    weight_kap_fn: Optional[Function] = None,
+    flux_parts: Optional[List] = None,
+) -> torch.Tensor:
+    """RT1 diffusive-flux reconstruction; coefficients [NC, 8] in the scaled
+    monomial frame (``_rt1_fields``).  Edge dofs: the P1(e) moments (m0,
+    m1) of the SWIPDG numerical flux along the global face normal (both
+    neighbours see the same t.n, so t is H(div)-conforming); interior dofs
+    int_T t dx from the divergence moments int_T div t (x_i - c_i) dx =
+    int_T f (x_i - c_i) dx, which with the edge dofs gives div t_h =
+    Pi_P1 f.  One 8x8 solve per cell."""
+    grid, dev, dt = space.grid, u.device, u.dtype
+    if grid.cell_type != TRIANGLE:
+        raise NotImplementedError(
+            "RT1 flux reconstruction (order-2 eta_R_*/eta_DF) is "
+            "triangle-only; on quads use order-1 spaces (RT0)")
+    m0, m1 = _numerical_flux_moments(
+        space, u, lam_fn, kap_fn, dirichlet_faces, neumann_faces, g_d, g_n,
+        qorder, weight_lam_fn, weight_kap_fn, flux_parts=flux_parts,
+    )
+    cf = _on(grid, "cell_faces", lambda: grid.cell_faces, dev)  # [NC, 3]
+    c, hT = _rt1_frame(grid, dev, dt)
+    fverts = lambda: grid.vertices[grid.faces][grid.cell_faces]  # noqa: E731
+    a = _on(grid, "rt1_face_a", lambda: fverts()[:, :, 0], dev, dt)  # [NC, 3, 2]
+    b = _on(grid, "rt1_face_b", lambda: fverts()[:, :, 1], dev, dt)
+    ng = _on(grid, "rt1_face_normals", lambda: grid.face_normals[grid.cell_faces], dev, dt)
+    L = _on(grid, "rt1_face_volumes", lambda: grid.face_volumes[grid.cell_faces], dev, dt)
+    mid = 0.5 * (a + b)
+    d_vec = b - a  # [NC, 3, 2]
+
+    # 2-pt Gauss on [0,1] integrates degree 3 exactly (Phi.n quadratic x s)
+    tq = torch.as_tensor([0.5 - 0.5 / np.sqrt(3.0), 0.5 + 0.5 / np.sqrt(3.0)],
+                         dtype=dt).to(dev)
+    gw = torch.as_tensor([0.5, 0.5], dtype=dt).to(dev)
+    s_hat = tq - 0.5
+    qp_e = a[:, :, None, :] + tq[None, None, :, None] * d_vec[:, :, None, :]
+    xi_e = (qp_e - c[:, None, None, :]) / hT[:, None, None, None]
+    Phin = torch.einsum("cfkja,cfa->cfkj", _rt1_fields(xi_e), ng)  # [NC, 3, 2, 8]
+    w = gw[None, None, :] * L[:, :, None]  # [NC, 3, 2]
+    row_m0 = torch.einsum("cfk,cfkj->cfj", w, Phin)
+    row_m1 = torch.einsum("cfk,k,cfkj->cfj", w, s_hat, Phin)
+
+    # interior functional rows: int_T Phi dx (2 components)
+    qp_c, qw_c = cell_quadrature(grid, 3, dev, dt)
+    xi_c = (qp_c - c[:, None, :]) / hT[:, None, None]
+    rows_int = torch.einsum("ck,ckja->caj", qw_c, _rt1_fields(xi_c))  # [NC, 2, 8]
+    M = torch.cat([row_m0, row_m1, rows_int], dim=1)  # [NC, 8, 8]
+
+    rhs_m0, rhs_m1 = m0[cf], m1[cf]  # [NC, 3] edge moments, global orientation
+    # int_T t_i = int_dT (t.n_out)(x_i - c_i) ds - int_T f (x_i - c_i),
+    # int_e (t.n_glob)(x_i - c_i) ds = m0 (mid_i - c_i) + m1 d_i
+    sgn = _on(grid, "rt0_outward_sign", lambda: _rt0_outward_sign(grid), dev, dt)
+    bd = (torch.einsum("cf,cfa->ca", sgn * rhs_m0, mid - c[:, None, :])
+          + torch.einsum("cf,cfa->ca", sgn * rhs_m1, d_vec))
+    if force_fn is not None:
+        qp_f, qw_f = cell_quadrature(grid, qorder, dev, dt)
+        fmom = torch.einsum("ck,ck,cka->ca", qw_f, force_fn(qp_f), qp_f - c[:, None, :])
+    else:
+        fmom = torch.zeros_like(bd)
+    rhs = torch.cat([rhs_m0, rhs_m1, bd - fmom], dim=1)  # [NC, 8]
+    return torch.linalg.solve(M, rhs[..., None])[..., 0]
+
+
+def rt1_evaluate(grid: Grid, coeffs: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+    """RT1 field at per-cell points qp [NC, k, 2] -> [NC, k, 2]."""
+    c, hT = _rt1_frame(grid, coeffs.device, coeffs.dtype)
+    xi = (qp - c[:, None, :]) / hT[:, None, None]
+    return torch.einsum("cj,ckja->cka", coeffs, _rt1_fields(xi))
+
+
+def rt1_divergence_at(grid: Grid, coeffs: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+    """div t at per-cell points [NC, k] (linear per cell)."""
+    c, hT = _rt1_frame(grid, coeffs.device, coeffs.dtype)
+    xi = (qp - c[:, None, :]) / hT[:, None, None]
+    return torch.einsum("cj,ckj->ck", coeffs, _rt1_divs(xi)) / hT[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +559,8 @@ class SWIPDGEstimators:
                        mu_hat=None, reconstruction: str = "frozen",
                        weight_diffusion=None, cache: Optional[dict] = None) -> torch.Tensor:
         """``cache``: a dict shared by the calls of one estimate, which keeps
-        the RT0 mean flux (the same for R_* and DF) after its first use."""
+        the RT0 mean flux or the RT1 coefficients (the same for R_* and DF)
+        after their first use."""
         grid, dev, dt = space.grid, space.device, space.dtype
         frozen = problem.with_mu(mu) if problem.parametric() else problem
         lam = freeze_function(frozen.diffusion_factor)
@@ -412,6 +595,15 @@ class SWIPDGEstimators:
                     weight_lam_fn=wlam, weight_kap_fn=wkap, flux_parts=flux_parts)
             return store["mean_flux"]
 
+        def rt1_coeffs():
+            store = cache if cache is not None else {}
+            if "rt1" not in store:
+                store["rt1"] = rt1_flux_reconstruction(
+                    space, u, lam, kap, dirichlet_faces, neumann_faces, g_d, g_n,
+                    force_fn=force, weight_lam_fn=wlam, weight_kap_fn=wkap,
+                    flux_parts=flux_parts)
+            return store["rt1"]
+
         if type_ == "eta_NC_ESV2007":
             qorder = lam.order + kap.order + 2 * space.order
             qp, qw = cell_quadrature(grid, qorder, dev, dt)
@@ -431,10 +623,12 @@ class SWIPDGEstimators:
             f_q = force(qp)
             if type_ == "eta_R_ESV2007":
                 vol = _on(grid, "cell_volumes", lambda: grid.cell_volumes, dev, dt)
-                proj = torch.sum(qw * f_q, dim=1) / vol  # P0 projection
+                proj = (torch.sum(qw * f_q, dim=1) / vol)[:, None]  # P0 projection
+            elif space.order >= 2:
+                proj = rt1_divergence_at(grid, rt1_coeffs(), qp)
             else:
-                proj = rt0_divergence(grid, mean_flux())
-            resid = torch.sum(qw * (f_q - proj[:, None]) ** 2, dim=1)
+                proj = rt0_divergence(grid, mean_flux())[:, None]
+            resid = torch.sum(qw * (f_q - proj) ** 2, dim=1)
             h2 = _on(grid, "cell_diameters", lambda: grid.cell_diameters, dev, dt) ** 2
             min_ev = min_diffusion_eigenvalue(lam, kap, grid, device=dev, dtype=dt)
             cutoff = POINCARE * h2 / min_ev
@@ -448,7 +642,10 @@ class SWIPDGEstimators:
             qp, qw = cell_quadrature(grid, qorder, dev, dt)
             u_loc = u[_on(space, "cell_dofs", lambda: space.cell_dofs, dev)]
             grad_uh = torch.einsum("ckia,ci->cka", cell_shape_gradients(space, qorder), u_loc)
-            t = rt0_evaluate(grid, mean_flux(), qp)
+            if space.order >= 2:
+                t = rt1_evaluate(grid, rt1_coeffs(), qp)
+            else:
+                t = rt0_evaluate(grid, mean_flux(), qp)
             lam_q = lam(qp) if type_ == "eta_DF_star" else lam_hat(qp)
             kap_q = kap(qp)
             resid = lam_q[..., None] * torch.einsum("ckab,ckb->cka", kap_q, grad_uh) + t
@@ -469,7 +666,7 @@ class SWIPDGEstimators:
     @classmethod
     def _parts(cls, space, boundary_info, problem, u, mu, mu_hat, reconstruction,
                weight_diffusion):
-        """The (NC, R_*, DF) local squares of one estimate, sharing one RT0
+        """The (NC, R_*, DF) local squares of one estimate, sharing one flux
         reconstruction."""
         cache: dict = {}
         return [cls._local_squared(space, boundary_info, problem, u, t, mu, mu_hat,

@@ -1,18 +1,16 @@
-"""Refinement hierarchies (host numpy).
+"""Refinement hierarchies and the string-keyed grid providers (host numpy).
 
-Counterpart of ``GridHierarchy`` and ``prolong_vertex_values`` in
-``dune_hdd_tpu/grid/hierarchy.py`` (the string-keyed ``GridProviders``
-factory waits for the quad grids, ROADMAP queue 1, slice 2).
+Counterpart of ``dune_hdd_tpu/grid/hierarchy.py``.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
-from .structured import Grid, RefinementInfo, refine
+from .structured import Grid, RefinementInfo, interval_grid, rectangle_grid, refine
 
-__all__ = ["GridHierarchy", "prolong_vertex_values"]
+__all__ = ["GridHierarchy", "prolong_vertex_values", "GridProviders"]
 
 
 class GridHierarchy:
@@ -69,3 +67,54 @@ def prolong_vertex_values(values, info: RefinementInfo):
     a piecewise-linear function prolongs by averaging.  numpy arrays or
     tensors; values may have trailing feature dims."""
     return 0.5 * (values[info.vertex_parents[:, 0]] + values[info.vertex_parents[:, 1]])
+
+
+class GridProviders:
+    """String-keyed grid factory (the reference's Stuff::GridProviders)."""
+
+    _registry: Dict[str, Callable[..., Grid]] = {}
+
+    @classmethod
+    def register(cls, name: str, factory: Callable[..., Grid]):
+        cls._registry[name] = factory
+
+    @classmethod
+    def available(cls) -> List[str]:
+        return sorted(cls._registry)
+
+    @classmethod
+    def create(cls, name: str, config: Optional[Mapping] = None) -> Grid:
+        if name not in cls._registry:
+            raise ValueError(f"unknown grid provider {name!r}; available: {cls.available()}")
+        return cls._registry[name](**dict(config or {}))
+
+
+def _pair(v, kind):
+    return (kind(v), kind(v)) if np.isscalar(v) else v
+
+
+def _cube_provider(lower_left=(0.0, 0.0), upper_right=(1.0, 1.0), num_elements=(8, 8),
+                   cell_type: str = "triangle", num_refinements: int = 0, **_ignored) -> Grid:
+    g = rectangle_grid(_pair(lower_left, float), _pair(upper_right, float),
+                       _pair(num_elements, int), cell_type)
+    for _ in range(int(num_refinements)):
+        g, _info = refine(g)
+    return g
+
+
+def _interval_provider(lower_left=0.0, upper_right=1.0, num_elements=8,
+                       num_refinements: int = 0, **_ignored) -> Grid:
+    """1D cube provider (the reference's SGrid<1,1> instantiations)."""
+    def first(v):
+        return float(np.atleast_1d(np.asarray(v, dtype=float))[0])
+
+    g = interval_grid(first(lower_left), first(upper_right), int(first(num_elements)))
+    for _ in range(int(num_refinements)):
+        g, _info = refine(g)
+    return g
+
+
+GridProviders.register("stuff.grid.provider.cube", _cube_provider)
+GridProviders.register("cube", _cube_provider)
+GridProviders.register("stuff.grid.provider.interval", _interval_provider)
+GridProviders.register("interval", _interval_provider)

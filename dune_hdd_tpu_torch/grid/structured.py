@@ -1,16 +1,20 @@
-"""Flat-array triangle grids of the ALU-bisected cube (host numpy).
+"""Flat-array 2D grids (triangle / quad) and 1D interval grids with
+uniform refinement hierarchies (host numpy).
 
-Counterpart of ``dune_hdd_tpu/grid/structured.py`` for triangle grids: the
-criss triangulation of a rectangle, uniform newest-vertex bisection and
-uniform red refinement, each refinement with its ``RefinementInfo``.  A grid
-is a set of static index arrays; the numbering is identical to the reference
-package's, so every derived array (cell order, assembly plan, DoF maps)
-matches it bit for bit.  Quad and interval grids are not ported yet
-(ROADMAP queue 1, slice 2).
+Counterpart of ``dune_hdd_tpu/grid/structured.py``: the criss
+triangulation or the quad grid of a rectangle, the interval grid, uniform
+newest-vertex bisection and uniform red refinement, each refinement with
+its ``RefinementInfo``.  A grid is a set of static index arrays; the
+numbering is identical to the reference package's, so every derived array
+(cell order, assembly plan, DoF maps) matches it bit for bit.
 
 Conventions
 -----------
 * triangle cell (v0,v1,v2): local faces f0=(v0,v1), f1=(v1,v2), f2=(v2,v0)
+* quad cell (v0,v1,v2,v3) counter-clockwise: f0=(v0,v1), f1=(v1,v2),
+  f2=(v2,v3), f3=(v3,v0)
+* interval cell (v0,v1): vertices are [NV, 1]; a face is one shared vertex,
+  stored as the degenerate pair (v, v)
 * ``face_cells[f] = (inside, outside)`` with outside == -1 on the boundary;
   face normals point from inside to outside.
 """
@@ -22,10 +26,15 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["Grid", "RefinementInfo", "rectangle_grid", "refine", "bisect", "alu_cube_grid",
-           "TRIANGLE"]
+__all__ = ["Grid", "RefinementInfo", "rectangle_grid", "interval_grid", "refine", "bisect",
+           "alu_cube_grid", "TRIANGLE", "QUAD", "INTERVAL"]
 
 TRIANGLE = "triangle"
+QUAD = "quad"
+INTERVAL = "interval"
+_LOCAL_FACES = {TRIANGLE: ((0, 1), (1, 2), (2, 0)),
+                QUAD: ((0, 1), (1, 2), (2, 3), (3, 0)),
+                INTERVAL: ((0, 0), (1, 1))}
 
 
 @dataclass(frozen=True)
@@ -33,7 +42,8 @@ class RefinementInfo:
     """Maps between a grid and its uniform refinement.
 
     vertex_parents[nv, 2]: each fine vertex as midpoint of two coarse
-    vertices (copied coarse vertices appear as (v, v)).  parent_cell[nc_fine]:
+    vertices (copied coarse vertices appear as (v, v); quad cell centres as
+    the cell's diagonal pair).  parent_cell[nc_fine]:
     coarse cell containing each fine cell.  child_index[nc_fine]: position
     within the parent."""
 
@@ -44,21 +54,21 @@ class RefinementInfo:
 
 @dataclass(frozen=True, eq=False)  # identity equality/hash: grids are built once
 class Grid:
-    vertices: np.ndarray  # [NV, 2] float64
-    cells: np.ndarray  # [NC, 3] int32
-    cell_type: str  # TRIANGLE
+    vertices: np.ndarray  # [NV, 2] float64 ([NV, 1] for intervals)
+    cells: np.ndarray  # [NC, 3|4|2] int32
+    cell_type: str  # TRIANGLE | QUAD | INTERVAL
 
     # connectivity (derived in __post_init__ via _build_connectivity)
     faces: np.ndarray = field(default=None)  # [NF, 2] vertex ids
-    cell_faces: np.ndarray = field(default=None)  # [NC, 3]
+    cell_faces: np.ndarray = field(default=None)  # [NC, nfc]
     face_cells: np.ndarray = field(default=None)  # [NF, 2] (inside, outside|-1)
     face_local: np.ndarray = field(default=None)  # [NF, 2] local face idx in each cell
 
     def __post_init__(self):
-        if self.cell_type != TRIANGLE:
-            raise ValueError(f"only triangle grids are supported, got {self.cell_type!r}")
+        if self.cell_type not in _LOCAL_FACES:
+            raise ValueError(f"unknown cell type {self.cell_type!r}")
         if self.faces is None:
-            f, cf, fc, fl = _build_connectivity(self.cells)
+            f, cf, fc, fl = _build_connectivity(self.cells, self.cell_type)
             object.__setattr__(self, "faces", f)
             object.__setattr__(self, "cell_faces", cf)
             object.__setattr__(self, "face_cells", fc)
@@ -86,7 +96,7 @@ class Grid:
 
     @cached_property
     def cell_vertices(self) -> np.ndarray:
-        """[NC, 3, 2] coordinates of each cell's vertices."""
+        """[NC, nvc, dim] coordinates of each cell's vertices."""
         return self.vertices[self.cells]
 
     @cached_property
@@ -96,15 +106,28 @@ class Grid:
     @cached_property
     def cell_volumes(self) -> np.ndarray:
         v = self.cell_vertices
-        e1 = v[:, 1] - v[:, 0]
-        e2 = v[:, 2] - v[:, 0]
-        return 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+        if self.cell_type == INTERVAL:
+            return np.abs(v[:, 1, 0] - v[:, 0, 0])
+        if self.cell_type == TRIANGLE:
+            e1 = v[:, 1] - v[:, 0]
+            e2 = v[:, 2] - v[:, 0]
+            return 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+        # shoelace for (convex) quads
+        x, y = v[..., 0], v[..., 1]
+        xn, yn = np.roll(x, -1, axis=1), np.roll(y, -1, axis=1)
+        return 0.5 * np.abs(np.sum(x * yn - xn * y, axis=1))
 
     @cached_property
     def cell_diameters(self) -> np.ndarray:
         v = self.cell_vertices
-        e = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 1], v[:, 0] - v[:, 2]], axis=1)
-        return np.linalg.norm(e, axis=-1).max(axis=1)
+        if self.cell_type == INTERVAL:
+            return self.cell_volumes
+        if self.cell_type == TRIANGLE:
+            e = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 1], v[:, 0] - v[:, 2]], axis=1)
+            return np.linalg.norm(e, axis=-1).max(axis=1)
+        d1 = np.linalg.norm(v[:, 2] - v[:, 0], axis=-1)
+        d2 = np.linalg.norm(v[:, 3] - v[:, 1], axis=-1)
+        return np.maximum(d1, d2)
 
     @cached_property
     def face_vertices(self) -> np.ndarray:
@@ -117,13 +140,26 @@ class Grid:
 
     @cached_property
     def face_volumes(self) -> np.ndarray:
-        """Face lengths |e|."""
+        """Face lengths |e|.  Intervals: a face is a point, and what the
+        SWIPDG penalty needs is the local length scale, min(h_inside,
+        h_outside) (the standard 1D IPDG choice)."""
+        if self.cell_type == INTERVAL:
+            h = self.cell_volumes[self.face_cells[:, 0]].copy()
+            outside = self.face_cells[:, 1]
+            has_out = outside >= 0
+            h[has_out] = np.minimum(h[has_out], self.cell_volumes[outside[has_out]])
+            return h
         fv = self.face_vertices
         return np.linalg.norm(fv[:, 1] - fv[:, 0], axis=-1)
 
     @cached_property
     def face_normals(self) -> np.ndarray:
-        """[NF, 2] unit normals oriented from inside cell to outside."""
+        """[NF, dim] unit normals oriented from inside cell to outside."""
+        if self.cell_type == INTERVAL:
+            inside = self.face_cells[:, 0]
+            n = np.sign(self.face_centroids[:, 0] - self.cell_centroids[inside, 0])
+            n[n == 0] = 1.0
+            return n[:, None]
         fv = self.face_vertices
         t = fv[:, 1] - fv[:, 0]
         n = np.stack([t[:, 1], -t[:, 0]], axis=-1)
@@ -162,9 +198,9 @@ class Grid:
         )
 
 
-def _build_connectivity(cells: np.ndarray):
-    local = np.stack([cells[:, [a, b]] for a, b in ((0, 1), (1, 2), (2, 0))],
-                     axis=1)  # [NC, 3, 2]
+def _build_connectivity(cells: np.ndarray, cell_type: str):
+    local = np.stack([cells[:, [a, b]] for a, b in _LOCAL_FACES[cell_type]],
+                     axis=1)  # [NC, nfc, 2]
     nc, nfc, _ = local.shape
     flat = local.reshape(-1, 2)
     key = np.sort(flat, axis=1).astype(np.int64)
@@ -198,9 +234,10 @@ def _build_connectivity(cells: np.ndarray):
     return faces, cell_faces, face_cells, face_local
 
 
-def rectangle_grid(lower=(0.0, 0.0), upper=(1.0, 1.0), num_elements=(4, 4)) -> Grid:
-    """Triangulated rectangle: each square split along its (0,0)-(1,1)
-    diagonal, lower triangle first."""
+def rectangle_grid(lower=(0.0, 0.0), upper=(1.0, 1.0), num_elements=(4, 4),
+                   cell_type: str = TRIANGLE) -> Grid:
+    """Structured grid of a rectangle: quads (v00, v10, v11, v01), or each
+    square split along its (0,0)-(1,1) diagonal, lower triangle first."""
     lower = np.asarray(lower, dtype=float)
     upper = np.asarray(upper, dtype=float)
     nx, ny = int(num_elements[0]), int(num_elements[1])
@@ -216,42 +253,77 @@ def rectangle_grid(lower=(0.0, 0.0), upper=(1.0, 1.0), num_elements=(4, 4)) -> G
     i, j = I.ravel(), J.ravel()
     v00, v10 = vid(i, j), vid(i + 1, j)
     v11, v01 = vid(i + 1, j + 1), vid(i, j + 1)
-    lowert = np.stack([v00, v10, v11], axis=-1)
-    uppert = np.stack([v00, v11, v01], axis=-1)
-    cells = np.stack([lowert, uppert], axis=1).reshape(-1, 3)
-    return Grid(vertices=vertices, cells=cells.astype(np.int32), cell_type=TRIANGLE)
+    if cell_type == QUAD:
+        cells = np.stack([v00, v10, v11, v01], axis=-1)
+    elif cell_type == TRIANGLE:
+        lowert = np.stack([v00, v10, v11], axis=-1)
+        uppert = np.stack([v00, v11, v01], axis=-1)
+        cells = np.stack([lowert, uppert], axis=1).reshape(-1, 3)
+    else:
+        raise ValueError(f"unknown cell type {cell_type!r}")
+    return Grid(vertices=vertices, cells=cells.astype(np.int32), cell_type=cell_type)
+
+
+def interval_grid(lower: float = 0.0, upper: float = 1.0, num_elements: int = 8) -> Grid:
+    """Uniform 1D interval mesh (the reference's SGrid<1,1>)."""
+    n = int(num_elements)
+    vertices = np.linspace(float(lower), float(upper), n + 1)[:, None]
+    ids = np.arange(n, dtype=np.int32)
+    return Grid(vertices=vertices, cells=np.stack([ids, ids + 1], axis=-1),
+                cell_type=INTERVAL)
 
 
 def refine(grid: Grid) -> Tuple[Grid, RefinementInfo]:
-    """Uniform red refinement of a triangle grid: fine vertices are
-    [coarse vertices] ++ [face midpoints (by face id)]; the fine cells of
-    coarse cell c occupy slots 4c..4c+3."""
-    if grid.cell_type != TRIANGLE:
-        raise NotImplementedError(
-            "red refinement of quad and interval grids is not ported yet "
-            "(ROADMAP queue 1, slice 2: quads)")
+    """Uniform red refinement: fine vertices are [coarse vertices] ++ [face
+    midpoints (by face id)] (++ [quad cell centres (by cell id)]); the fine
+    cells of coarse cell c occupy slots 4c..4c+3.  Intervals bisect: fine
+    vertices [coarse vertices] ++ [cell midpoints], children in 2c, 2c+1."""
     nv, nf, nc = grid.num_vertices, grid.num_faces, grid.num_cells
+    c = grid.cells.astype(np.int64)
+    diag = np.stack([np.arange(nv)] * 2, axis=-1)
+    if grid.cell_type == INTERVAL:
+        centre_vid = nv + np.arange(nc, dtype=np.int64)
+        new_vertices = np.concatenate([grid.vertices, grid.cell_vertices.mean(axis=1)], axis=0)
+        vertex_parents = np.concatenate([diag, c], axis=0)
+        ch0 = np.stack([c[:, 0], centre_vid], axis=-1)
+        ch1 = np.stack([centre_vid, c[:, 1]], axis=-1)
+        new_cells = np.stack([ch0, ch1], axis=1).reshape(-1, 2)
+        info = RefinementInfo(vertex_parents=vertex_parents,
+                              parent_cell=np.repeat(np.arange(nc, dtype=np.int64), 2),
+                              child_index=np.tile(np.arange(2, dtype=np.int64), nc))
+        return Grid(vertices=new_vertices, cells=new_cells.astype(np.int32),
+                    cell_type=INTERVAL), info
+
     mid = grid.face_vertices.mean(axis=1)
     edge_vid = nv + np.arange(nf, dtype=np.int64)
-    new_vertices = np.concatenate([grid.vertices, mid], axis=0)
-    vertex_parents = np.concatenate(
-        [np.stack([np.arange(nv)] * 2, axis=-1), grid.faces.astype(np.int64)], axis=0)
-    c = grid.cells
-    # midpoint of local face k  (f0=(v0,v1), f1=(v1,v2), f2=(v2,v0))
-    m = edge_vid[grid.cell_faces]  # [NC, 3]
-    m01, m12, m20 = m[:, 0], m[:, 1], m[:, 2]
-    ch0 = np.stack([c[:, 0], m01, m20], axis=-1)
-    ch1 = np.stack([m01, c[:, 1], m12], axis=-1)
-    ch2 = np.stack([m20, m12, c[:, 2]], axis=-1)
-    ch3 = np.stack([m01, m12, m20], axis=-1)  # centre triangle
-    new_cells = np.stack([ch0, ch1, ch2, ch3], axis=1).reshape(-1, 3)
+    m = edge_vid[grid.cell_faces]  # [NC, nfc] midpoint of each local face
+    if grid.cell_type == TRIANGLE:
+        new_vertices = np.concatenate([grid.vertices, mid], axis=0)
+        vertex_parents = np.concatenate([diag, grid.faces.astype(np.int64)], axis=0)
+        m01, m12, m20 = m[:, 0], m[:, 1], m[:, 2]
+        ch0 = np.stack([c[:, 0], m01, m20], axis=-1)
+        ch1 = np.stack([m01, c[:, 1], m12], axis=-1)
+        ch2 = np.stack([m20, m12, c[:, 2]], axis=-1)
+        ch3 = np.stack([m01, m12, m20], axis=-1)  # centre triangle
+    else:  # QUAD
+        cc = nv + nf + np.arange(nc, dtype=np.int64)  # cell centres
+        new_vertices = np.concatenate(
+            [grid.vertices, mid, grid.cell_vertices.mean(axis=1)], axis=0)
+        vertex_parents = np.concatenate(
+            [diag, grid.faces.astype(np.int64), c[:, [0, 2]]], axis=0)  # diagonal pair
+        m01, m12, m23, m30 = m[:, 0], m[:, 1], m[:, 2], m[:, 3]
+        ch0 = np.stack([c[:, 0], m01, cc, m30], axis=-1)
+        ch1 = np.stack([m01, c[:, 1], m12, cc], axis=-1)
+        ch2 = np.stack([cc, m12, c[:, 2], m23], axis=-1)
+        ch3 = np.stack([m30, cc, m23, c[:, 3]], axis=-1)
+    new_cells = np.stack([ch0, ch1, ch2, ch3], axis=1).reshape(nc * 4, -1)
     info = RefinementInfo(
         vertex_parents=vertex_parents,
         parent_cell=np.repeat(np.arange(nc, dtype=np.int64), 4),
         child_index=np.tile(np.arange(4, dtype=np.int64), nc),
     )
     return Grid(vertices=new_vertices, cells=new_cells.astype(np.int32),
-                cell_type=TRIANGLE), info
+                cell_type=grid.cell_type), info
 
 
 def bisect(grid: Grid) -> Tuple[Grid, RefinementInfo]:
@@ -259,6 +331,8 @@ def bisect(grid: Grid) -> Tuple[Grid, RefinementInfo]:
     local face 0; children of (a, b, c) with midpoint m of (a, b) are
     (c, a, m) and (b, c, m).  Raises if the bisection would create hanging
     nodes."""
+    if grid.cell_type != TRIANGLE:
+        raise ValueError("bisection refinement is for triangle grids")
     nv, nc = grid.num_vertices, grid.num_cells
     ref_face = grid.cell_faces[:, 0]
     claims = np.bincount(ref_face, minlength=grid.num_faces)

@@ -10,7 +10,7 @@ a flat cell-major x [nc * nd] and 8 x 3 flat cell offsets (see
 
 with the self term at s = 0.  Neighbour reads wrap modulo nc, the semantics
 of the reference's ``StructuredBlockEll.matvec``.  CUDA tensors go to the
-hand-written kernel (float32, nd = 3); CPU tensors go to
+hand-written kernel (float32, nd in {3, 6, 10}); CPU tensors go to
 ``structured_spmv_reference``.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ from . import build
 
 __all__ = ["structured_spmv", "structured_spmv_reference", "structured_neighbor_fields"]
 
-_KERNEL_ND = 3
+KERNEL_ND = (3, 6, 10)
 
 
 def structured_neighbor_fields(xc: torch.Tensor, offsets) -> torch.Tensor:
@@ -57,8 +57,9 @@ def _offsets_array(offsets, nc: int) -> ctypes.Array:
 
 
 @lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("structured_spmv").structured_spmv_f32
+def _kernel(nd: int):
+    name = "structured_spmv_" + ("" if nd == 3 else f"nd{nd}_") + "f32"
+    fn = getattr(build.load("structured_spmv"), name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -69,8 +70,8 @@ def _check(planes: torch.Tensor, x: torch.Tensor) -> None:
     if planes.dim() != 4 or planes.shape[0] != 4 or planes.shape[1] != planes.shape[2]:
         raise ValueError(f"planes must be [4, nd, nd, nc], got {tuple(planes.shape)}")
     nd, nc = planes.shape[1], planes.shape[3]
-    if nd != _KERNEL_ND:
-        raise ValueError(f"the kernel is built for nd = {_KERNEL_ND}, got nd = {nd}")
+    if nd not in KERNEL_ND:
+        raise ValueError(f"the kernel is built for nd in {KERNEL_ND}, got nd = {nd}")
     if nc % 8:
         raise ValueError(f"the cell count must be a multiple of 8 subclasses, got {nc}")
     if tuple(x.shape) != (nc * nd,):
@@ -98,7 +99,7 @@ def structured_spmv(planes: torch.Tensor, x: torch.Tensor, offsets) -> torch.Ten
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     offsets = tuple(tuple(int(o) for o in row) for row in offsets)
-    err = _kernel()(planes.data_ptr(), x.data_ptr(), y.data_ptr(), nc,
+    err = _kernel(planes.shape[1])(planes.data_ptr(), x.data_ptr(), y.data_ptr(), nc,
                     _offsets_array(offsets, nc), planes.device.index, stream)
     if err != 0:
         raise RuntimeError(f"structured_spmv launch failed: cudaError {err}")

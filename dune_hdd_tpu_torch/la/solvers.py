@@ -1,14 +1,15 @@
 """Linear solvers + options registry.
 
 Counterpart of ``dune_hdd_tpu/la/solvers.py``.  The Krylov methods follow
-``jax.scipy.sparse.linalg.cg`` / ``bicgstab``: relative ``tol`` on ||b||
+``jax.scipy.sparse.linalg.cg`` / ``bicgstab`` / ``gmres``: relative ``tol`` on ||b||
 (non-legacy scipy semantics), ``atol`` 0, ``x0`` zero by default, ``M``
 applied to the residual, maxiter 10 N by default, and the same stopping
 test before every iteration.  The loop runs on the device: an iteration
 after the stopping test has failed changes nothing (its step lengths are
 masked to zero on the device), and the host reads the test once every
 ``CHECK_EVERY`` iterations, so the solution and iteration count are the
-ones of the loop that stops exactly, at one host sync per block.
+ones of the loop that stops exactly, at one host sync per block.  GMRES
+(:func:`gmres`) reads its residual estimate once per Arnoldi step.
 "direct" densifies up to 4096 rows and runs a sparse LU
 (``scipy.sparse.linalg.spsolve``) on the host above that.
 """
@@ -20,9 +21,9 @@ import torch
 
 from .sparse import SparseMatrix
 
-__all__ = ["solver_types", "solver_options", "solve", "make_preconditioner", "cg", "bicgstab"]
+__all__ = ["solver_types", "solver_options", "solve", "make_preconditioner", "cg", "bicgstab",
+           "gmres"]
 
-GMRES_NOT_PORTED = "gmres is not ported yet (ROADMAP queue 1, slice 2: gmres)"
 CHECK_EVERY = 8  # iterations between host reads of the stopping test
 
 _DEFAULT_OPTS = {
@@ -149,6 +150,73 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     return x, int(iters)
 
 
+def gmres(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-5,
+          atol: float = 0.0, restart: int = 20, maxiter: Optional[int] = None,
+          M: Optional[Callable] = None) -> Tuple[torch.Tensor, int, int]:
+    """Restarted GMRES, left-preconditioned as ``jax.scipy.sparse.linalg.gmres``:
+    the Krylov space is that of M A, and every residual is M (b - A x).
+
+    ``maxiter`` counts restarts (each one rebuilds a Krylov space of at most
+    ``restart`` vectors), as in jax, not Arnoldi steps; default 10 N.  The
+    outer loop stops when ||M (b - A x)|| <= max(tol ||b||, atol): the
+    preconditioned residual against the unpreconditioned rhs, jax's test.
+    Within a restart the Arnoldi process (modified Gram-Schmidt) runs with
+    Givens rotations, whose residual estimate stops it early at
+    ||M b|| min(1, atol / ||b||) (jax's ``ptol``; jax's default "batched"
+    method runs every restart to its full length instead, so the two agree
+    to the solve's tolerance, not bitwise).  An invariant subspace (a new
+    Arnoldi vector below eps times its norm before orthogonalization) ends a
+    restart.  Returns (x, Arnoldi steps, restarts)."""
+    n = b.numel()
+    maxiter = 10 * n if maxiter is None else int(maxiter)
+    restart = min(int(restart), n)
+    Mf = M or (lambda v: v)
+    eps = torch.finfo(b.dtype).eps
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    b_norm = float(torch.linalg.norm(b))
+    atol = max(tol * b_norm, atol)
+    ptol = float(torch.linalg.norm(Mf(b))) * min(1.0, atol / b_norm) if b_norm else 0.0
+    r = Mf(b - A(x))
+    beta = torch.linalg.norm(r)
+    steps = restarts = 0
+    while restarts < maxiter and float(beta) > atol:
+        V = [r / beta]
+        H = b.new_zeros((restart + 1, restart))
+        cs, sn = b.new_zeros(restart), b.new_zeros(restart)
+        g = b.new_zeros(restart + 1)
+        g[0] = beta
+        k = 0
+        while k < restart:
+            w = Mf(A(V[k]))
+            w_norm0 = torch.linalg.norm(w)
+            for i in range(k + 1):  # modified Gram-Schmidt
+                H[i, k] = _dot(w, V[i])
+                w = w - H[i, k] * V[i]
+            w_norm = torch.linalg.norm(w)
+            H[k + 1, k] = w_norm
+            breakdown = bool(w_norm <= eps * w_norm0)
+            for i in range(k):  # the earlier rotations on the new column
+                hi, hj = H[i, k].clone(), H[i + 1, k].clone()
+                H[i, k] = cs[i] * hi + sn[i] * hj
+                H[i + 1, k] = cs[i] * hj - sn[i] * hi
+            denom = torch.hypot(H[k, k], H[k + 1, k])
+            cs[k], sn[k] = H[k, k] / denom, H[k + 1, k] / denom
+            H[k, k], H[k + 1, k] = denom, 0.0
+            g[k + 1] = -sn[k] * g[k]
+            g[k] = cs[k] * g[k]
+            k += 1
+            steps += 1
+            if breakdown or float(g[k].abs()) <= ptol:
+                break
+            V.append(w / w_norm)
+        y = torch.linalg.solve_triangular(H[:k, :k], g[:k, None], upper=True)[:, 0]
+        x = x + torch.stack(V[:k], dim=1) @ y
+        r = Mf(b - A(x))
+        beta = torch.linalg.norm(r)
+        restarts += 1
+    return x, steps, restarts
+
+
 def solve(matrix: SparseMatrix, rhs: torch.Tensor, options: Optional[Dict] = None,
           x0: Optional[torch.Tensor] = None, info: Optional[Dict] = None) -> torch.Tensor:
     """Solve A x = b according to an options dict; a Krylov solver writes
@@ -170,10 +238,13 @@ def solve(matrix: SparseMatrix, rhs: torch.Tensor, options: Optional[Dict] = Non
             x = spla.spsolve(A, rhs.detach().cpu().double().numpy())
             return torch.as_tensor(x, dtype=rhs.dtype).to(rhs.device)
         return torch.linalg.solve(matrix.to_dense(), rhs)
-    if base == "gmres":
-        raise NotImplementedError(GMRES_NOT_PORTED)
     M = make_preconditioner(matrix, precond) if precond else None
-    if base == "cg":
+    if base == "gmres":
+        x, iterations, restarts = gmres(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter,
+                                        restart=int(opts.get("restart", 50)), M=M)
+        if info is not None:
+            info["restarts"] = restarts
+    elif base == "cg":
         x, iterations = cg(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter, M=M)
     elif base == "bicgstab":
         x, iterations = bicgstab(matrix.matvec, rhs, x0=x0, tol=tol, maxiter=maxiter, M=M)

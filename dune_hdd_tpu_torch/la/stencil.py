@@ -209,16 +209,22 @@ class StencilBlockEll:
 
 
 def jacobi_smoother(A: StencilBlockEll) -> Callable:
-    """Blockwise inverse of the diagonal 3x3 blocks, SoA layout."""
-    D = A.diagonal_blocks()  # [3, 3, 8, KY, KX]
-    Dinv = torch.movedim(inv3x3(torch.movedim(D, (0, 1), (-2, -1))), (-2, -1), (0, 1))
+    """Blockwise inverse of the diagonal nd x nd blocks, SoA layout (the
+    closed-form 3x3 inverse for P1, ``torch.linalg.inv`` above)."""
+    D = torch.movedim(A.diagonal_blocks(), (0, 1), (-2, -1))  # [8, KY, KX, nd, nd]
+    nd = A.nd
+    Dinv = torch.movedim(inv3x3(D) if nd == 3 else torch.linalg.inv(D), (-2, -1), (0, 1))
 
     def apply(R: torch.Tensor) -> torch.Tensor:
         # fused multiply-adds in j order: the rounding of the reference's
         # XLA contraction
-        return torch.stack([
-            torch.addcmul(torch.addcmul(Dinv[i, 0] * R[0], Dinv[i, 1], R[1]), Dinv[i, 2], R[2])
-            for i in range(3)])
+        out = []
+        for i in range(nd):
+            t = Dinv[i, 0] * R[0]
+            for j in range(1, nd):
+                t = torch.addcmul(t, Dinv[i, j], R[j])
+            out.append(t)
+        return torch.stack(out)
 
     return apply
 

@@ -16,10 +16,10 @@ import torch
 
 from ..affine import AffineDecomposition
 from ..functions.base import Function
-from ..grid.structured import Grid
+from ..grid.structured import INTERVAL, TRIANGLE, Grid
 from ..la.sparse import SparseMatrix, SparsityPattern, build_pattern
 from ..parameters import ProductFunctional
-from .quadrature import edge_rule, tri_rule
+from .quadrature import edge_rule, quad_rule, tri_rule
 from .spaces import Space
 
 __all__ = [
@@ -43,30 +43,49 @@ def _t(array, device, dtype) -> torch.Tensor:
 
 def cell_quadrature(grid: Grid, order: int, device, dtype=torch.float64
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Physical quadrature: points [NC, k, 2], weights [NC, k] (incl. |J|),
-    cached per (grid, order, device, dtype)."""
+    """Physical quadrature: points [NC, k, dim], weights [NC, k] (incl.
+    |J|), cached per (grid, order, device, dtype)."""
     key = ("_cell_quadrature", int(order), str(device), dtype)
     cached = grid.__dict__.get(key)
     if cached is not None:
         return cached
     verts = _t(grid.cell_vertices, device, dtype)
-    ref, w = tri_rule(order)
-    ref, w = _t(ref, device, dtype), _t(w, device, dtype)
-    v0 = verts[:, 0, :]
-    e1 = verts[:, 1, :] - v0
-    e2 = verts[:, 2, :] - v0
-    qp = v0[:, None, :] + ref[None, :, 0:1] * e1[:, None, :] + ref[None, :, 1:2] * e2[:, None, :]
-    detj = torch.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
-    qw = 2.0 * w[None, :] * detj[:, None] * 0.5  # w sums to 1/2; |J| = 2*area
+    if grid.cell_type == INTERVAL:
+        t, w = edge_rule(order)
+        t, w = _t(t, device, dtype), _t(w, device, dtype)
+        v0, v1 = verts[:, 0, :], verts[:, 1, :]
+        qp = v0[:, None, :] + t[None, :, None] * (v1 - v0)[:, None, :]
+        qw = w[None, :] * torch.abs((v1 - v0)[:, 0])[:, None]
+    elif grid.cell_type == TRIANGLE:
+        ref, w = tri_rule(order)
+        ref, w = _t(ref, device, dtype), _t(w, device, dtype)
+        v0 = verts[:, 0, :]
+        e1 = verts[:, 1, :] - v0
+        e2 = verts[:, 2, :] - v0
+        qp = (v0[:, None, :] + ref[None, :, 0:1] * e1[:, None, :]
+              + ref[None, :, 1:2] * e2[:, None, :])
+        detj = torch.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+        qw = 2.0 * w[None, :] * detj[:, None] * 0.5  # w sums to 1/2; |J| = 2*area
+    else:  # axis-aligned rectangles
+        ref, w = quad_rule(order)
+        ref, w = _t(ref, device, dtype), _t(w, device, dtype)
+        lo = verts[:, 0, :]
+        ext = verts[:, 2, :] - lo
+        qp = lo[:, None, :] + ref[None, :, :] * ext[:, None, :]
+        qw = w[None, :] * torch.abs(ext[:, 0] * ext[:, 1])[:, None]
     grid.__dict__[key] = (qp, qw)
     return qp, qw
 
 
 def face_quadrature(grid: Grid, order: int, device, dtype=torch.float64,
                     face_ids: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Points [F, k, 2] and weights [F, k] (incl. face length) on faces."""
+    """Points [F, k, dim] and weights [F, k] (incl. face length) on faces.
+    Intervals: a face is a point, its integral a point evaluation (weight 1;
+    the penalty length scale lives in ``grid.face_volumes``)."""
     fv = grid.face_vertices if face_ids is None else grid.face_vertices[np.asarray(face_ids)]
     fv = _t(fv, device, dtype)
+    if grid.cell_type == INTERVAL:
+        return fv[:, :1, :], fv.new_ones(fv.shape[:1] + (1,))
     t, w = edge_rule(order)
     t, w = _t(t, device, dtype), _t(w, device, dtype)
     a, b = fv[:, 0, :], fv[:, 1, :]
@@ -92,7 +111,7 @@ def cell_shape_values(space: Space, qorder: int) -> torch.Tensor:
 
 
 def cell_shape_gradients(space: Space, qorder: int) -> torch.Tensor:
-    """[NC, k, nd, 2] basis gradients at the cell quadrature points (cached)."""
+    """[NC, k, nd, dim] basis gradients at the cell quadrature points (cached)."""
     key = ("_cell_shape_gradients", int(qorder))
     if key not in space.__dict__:
         qp, _ = _cell_quadrature(space, qorder)

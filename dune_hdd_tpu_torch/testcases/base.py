@@ -12,26 +12,28 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 
 from ..grid.hierarchy import GridHierarchy
-from ..grid.structured import Grid, alu_cube_grid, bisect
+from ..grid.structured import Grid, alu_cube_grid, bisect, rectangle_grid, refine
 from ..parameters import Parameter, parse_parameter
 from ..problems.interfaces import Problem
 
 __all__ = ["TestCaseBase", "make_cube_hierarchy"]
-
-VARIANT_NOT_PORTED = ("the {variant!r} grid variant is not ported yet (ROADMAP queue 1, "
-                      "slice 2: quads and rectangle_grid's cell_type)")
 
 
 def make_cube_hierarchy(lower, upper, num_elements, grid_variant: str,
                         initial_refinements: int, num_levels: int) -> GridHierarchy:
     """Grid hierarchy for a cube-provider test case.  ``"alu_conforming"``:
     triangles, newest-vertex bisection, 2 steps per level (1 initial
-    refinement is 1 bisection step).  The "simplex" and "cube" variants are
-    not ported yet."""
-    if grid_variant != "alu_conforming":
-        raise NotImplementedError(VARIANT_NOT_PORTED.format(variant=grid_variant))
-    g = alu_cube_grid(lower, upper, num_elements, refinements=initial_refinements)
-    return GridHierarchy(g, num_levels, refine_fn=bisect, steps_per_level=2)
+    refinement is 1 bisection step); ``"simplex"``: diagonal-split
+    triangles, red refinement, 1 step per level; ``"cube"``: quads (SGrid),
+    red refinement, 1 step per level."""
+    if grid_variant == "alu_conforming":
+        g = alu_cube_grid(lower, upper, num_elements, refinements=initial_refinements)
+        return GridHierarchy(g, num_levels, refine_fn=bisect, steps_per_level=2)
+    g = rectangle_grid(lower, upper, num_elements,
+                       "triangle" if grid_variant == "simplex" else "quad")
+    for _ in range(initial_refinements):
+        g, _ = refine(g)
+    return GridHierarchy(g, num_levels, refine_fn=refine, steps_per_level=1)
 
 
 class TestCaseBase:

@@ -1,7 +1,8 @@
 """ESV2007 test case: [-1,1]^2, all Dirichlet, 4x4 cube grid, exact
 solution cos(pi/2 x) cos(pi/2 y).  Counterpart of
-``dune_hdd_tpu/testcases/esv2007.py`` for the ALU-conforming variant (level
-0 has 128 conforming triangles: 2 initial bisections)."""
+``dune_hdd_tpu/testcases/esv2007.py``: the ALU-conforming variant's level 0
+has 128 conforming triangles (2 initial bisections), the "simplex" and
+"cube" variants' 1 red refinement (128 triangles / 64 quads)."""
 from __future__ import annotations
 
 from ..functions.esv2007 import Testcase1ExactSolution
@@ -18,8 +19,10 @@ class ESV2007TestCase(TestCaseBase):
     def __init__(self, num_refinements: int = default_num_refinements,
                  grid_variant: str = "alu_conforming"):
         self.grid_variant = grid_variant
+        initial = 2 if grid_variant == "alu_conforming" else 1
         hierarchy = make_cube_hierarchy((-1.0, -1.0), (1.0, 1.0), (4, 4), grid_variant,
-                                        initial_refinements=2, num_levels=num_refinements + 1)
+                                        initial_refinements=initial,
+                                        num_levels=num_refinements + 1)
         super().__init__(problem=ESV2007Problem(), hierarchy=hierarchy,
                          boundary_info_cfg={"type": "stuff.grid.boundaryinfo.alldirichlet"},
                          exact_solution=Testcase1ExactSolution(),

@@ -26,7 +26,8 @@ class OS2014TestCase(TestCaseBase):
                  grid_variant: str = "alu_conforming"):
         self.grid_variant = grid_variant
         hierarchy = make_cube_hierarchy((-1.0, -1.0), (1.0, 1.0), (4, 4), grid_variant,
-                                        initial_refinements=2, num_levels=num_refinements + 1)
+                                        initial_refinements=2 if grid_variant == "alu_conforming"
+                                        else 1, num_levels=num_refinements + 1)
         super().__init__(problem=ParametricESV2007Problem(), hierarchy=hierarchy,
                          boundary_info_cfg={"type": "stuff.grid.boundaryinfo.alldirichlet"},
                          exact_solution=None, num_refinements=num_refinements,

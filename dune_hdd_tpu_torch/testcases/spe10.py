@@ -23,7 +23,8 @@ _BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 
 def _spe10_hierarchy(grid_variant: str, num_refinements: int, num_elements=(100, 20)):
     return make_cube_hierarchy((0.0, 0.0), (5.0, 1.0), num_elements, grid_variant,
-                               initial_refinements=1, num_levels=num_refinements + 1)
+                               initial_refinements=1 if grid_variant == "alu_conforming" else 0,
+                               num_levels=num_refinements + 1)
 
 
 class Spe10Model1TestCase(TestCaseBase):

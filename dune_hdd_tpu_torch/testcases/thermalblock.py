@@ -29,7 +29,8 @@ class ThermalblockTestCase(TestCaseBase):
         self.grid_variant = grid_variant
         self.num_blocks = tuple(int(n) for n in num_blocks)[:2]
         hierarchy = make_cube_hierarchy((0.0, 0.0), (1.0, 1.0), (4, 4), grid_variant,
-                                        initial_refinements=2, num_levels=num_refinements + 1)
+                                        initial_refinements=2 if grid_variant == "alu_conforming"
+                                        else 1, num_levels=num_refinements + 1)
         super().__init__(problem=ThermalblockProblem(self.num_blocks), hierarchy=hierarchy,
                          boundary_info_cfg={"type": "stuff.grid.boundaryinfo.alldirichlet"},
                          exact_solution=None, num_refinements=num_refinements,

@@ -7,8 +7,10 @@ CPU), P1 on triangles:
   with 2 and 4 bisections), the 2x2 thermalblock (parametric: coefficient
   products of the shift) and mixed Dirichlet/Neumann boundaries with a
   nonzero Dirichlet value;
+* orders 2-3 (P2/P3 on triangles, Q2 on quads): operator, rhs and the
+  solution with the Dirichlet shift against the reference's;
 * the reference's own CG tests that need only ported modules (its quad
-  cases run here on triangles; orders 2-3 wait for the P2/P3 spaces): EOC
+  cases run here on triangles): EOC
   above 1.85 (L2) and 0.95 (H1_semi) over 3 levels, solver types, products,
   the Dirichlet shift, id- against normal-based boundaries, affine
   consistency and the solution cache.
@@ -157,13 +159,13 @@ def test_cg_esv2007_converges():
 
 
 def test_cg_solver_types_agree():
-    d, _, _ = _case("esv2007_rectangle_1")
+    d, jd, _ = _case("esv2007_rectangle_1")
     u_direct = d.solve(options={"type": "direct"})
     for t in ("cg.jacobi", "bicgstab.jacobi"):
         u = d.solve(options={"type": t, "precision": 1e-12})
         assert float(torch.max(torch.abs(u - u_direct))) < 1e-8, t
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d.solve(options={"type": "gmres.jacobi"})
+    gmres = {"type": "gmres.jacobi", "precision": 1e-10}
+    _close(d.solve(options=gmres), jd.solve(options=gmres), rel=1e-8)
 
 
 def test_cg_products():
@@ -214,10 +216,20 @@ def test_cg_thermalblock_solution_cache():
 
 
 def test_orders_above_one_and_default_device():
+    """Orders 2 (P2 triangles, Q2 quads) and 3 (P3) equal the reference's:
+    operator, rhs, Dirichlet vector and the shifted direct solution."""
+    for order, cell_type in ((2, "triangle"), (3, "triangle"), (2, "quad")):
+        t = tg.rectangle_grid((-1, -1), (1, 1), (4, 4), cell_type)
+        j = jg.rectangle_grid((-1, -1), (1, 1), (4, 4), cell_type)
+        d = TCG(t, MIXED, _mixed_boundaries(tf, tp), order=order, device="cpu")
+        jd = JCG(j, MIXED, _mixed_boundaries(jf, jp), order=order)
+        assert d.space.num_dofs == jd.space.num_dofs
+        _close(d.freeze_operator({}).values, jd.freeze_operator(None).values)
+        _close(d.freeze_rhs({}), jd.freeze_rhs(None))
+        _close(d._vectors["dirichlet"].affine_part, jd._vectors["dirichlet"].affine_part)
+        _close(d.solve_with_dirichlet_shift(options={"type": "direct"}),
+               jd.solve_with_dirichlet_shift(options={"type": "direct"}), atol=1e-10)
     grid = tg.rectangle_grid((0, 0), (1, 1), (2, 2))
-    for order in (2, 3):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TCG(grid, ALL_DIRICHLET, tp.ESV2007Problem(), order=order, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):

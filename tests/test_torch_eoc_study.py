@@ -79,7 +79,16 @@ def test_stencil_cg_study_matches_the_table():
 def test_expectations_and_rates():
     assert expected_results("ESV2007", "alu_conforming", 1, "L2")[:2] == [1.83e-02, 4.53e-03]
     assert eoc_rates([4.0, 1.0, 0.25]) == [2.0, 2.0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_cube_hierarchy((0, 0), (1, 1), (2, 2), "cube", 1, 1)
+    # the quad ("cube") and red-refined triangle ("simplex") variants equal the reference's
+    from dune_hdd_tpu.testcases.base import make_cube_hierarchy as j_hierarchy
+
+    for variant in ("cube", "simplex"):
+        t, j = (f((0, 0), (1, 1), (2, 2), variant, 1, 1) for f in (make_cube_hierarchy,
+                                                                    j_hierarchy))
+        assert len(t) == len(j) == 2
+        for level in range(2):
+            assert t[level].cell_type == j[level].cell_type
+            np.testing.assert_array_equal(t[level].cells, j[level].cells)
+            np.testing.assert_array_equal(t[level].vertices, j[level].vertices)
     with pytest.raises(StudyCheckError):
         check_eoc_study_for_success(object(), "ESV2007", "alu_conforming", 1)

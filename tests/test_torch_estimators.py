@@ -183,12 +183,19 @@ def test_estimate_local_normalised():
 
 
 def test_unknown_estimator_rejected():
-    d, _, u, _ = _esv(0)
+    d, jd, u, _ = _esv(0)
     with pytest.raises(ValueError):
         te.SWIPDGEstimators.estimate(d.space, d.boundary_info, d.problem, torch.as_tensor(u),
                                      "eta_bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.rt1_flux_reconstruction(d.space, torch.as_tensor(u))
+    # the RT1 reconstruction (the P2 estimators' flux) equals the reference's
+    lam, kap, force, g_d = _functions(d.problem, t_freeze)
+    jlam, jkap, jforce, jg_d = _functions(jd.problem, j_freeze)
+    fb = np.nonzero(d.boundary_info.dirichlet_faces)[0]
+    none = np.zeros(0, dtype=np.int64)
+    _close(te.rt1_flux_reconstruction(d.space, torch.as_tensor(u), lam, kap, fb, none, g_d,
+                                      force_fn=force),
+           je.rt1_flux_reconstruction(jd.space, jnp.asarray(u), jlam, jkap, fb, none, jg_d,
+                                      force_fn=jforce), rel=1e-10)
 
 
 MU = np.array([0.1, 1.0, 0.5, 0.3])

@@ -43,6 +43,11 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.mor.io, dune_hdd_tpu_torch.mor.adaptive\n"
         "import dune_hdd_tpu_torch.mor.pymor_shim\n"
         "from dune_hdd_tpu_torch.convert import reduced_model_from_numpy\n"
+        "import dune_hdd_tpu_torch.kernels.plane_spmv, dune_hdd_tpu_torch.grid.structured\n"
+        "from dune_hdd_tpu_torch.grid.hierarchy import GridProviders\n"
+        "from dune_hdd_tpu_torch.grid.structured import interval_grid\n"
+        "from dune_hdd_tpu_torch.la.solvers import gmres\n"
+        "from dune_hdd_tpu_torch.estimators.swipdg import rt1_flux_reconstruction\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )

@@ -5,8 +5,10 @@ StencilBlockEll.matvec on the assembled SPE10 operator (1e-12 x max in
 float64, 1e-5 x max in float32) and, on a random operator whose wrapped
 blocks are zero, also the Pallas TPU kernel run in interpret mode; the
 wrapper validates its inputs and routes CPU tensors to the plain version
-without counting a launch.  The ``cuda`` test holds the CUDA kernel to the
-plain version on the card (it needs no JAX: run it there with
+without counting a launch, and takes nd in {3, 6, 10} DoF per cell (DG
+P1-P3) and no other.  The ``cuda`` tests hold the CUDA kernel to the plain
+version on the card, at nd = 3 on the assembled and random operators and at
+nd = 6 and 10 on random ones (they need no JAX: run them there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_plane_spmv.py``).
 """
 import os
@@ -69,12 +71,12 @@ def _assembled_planes(dtype):
     return S.planes.to(dtype), S.plan
 
 
-def _random_planes(plan, lattice, seed, dtype):
+def _random_planes(plan, lattice, seed, dtype, nd=3):
     """Random planes with every block whose neighbour read wraps around a
     lattice axis set to zero (as in every assembled operator)."""
     KY, KX = lattice
     rng = np.random.default_rng(seed)
-    W = rng.standard_normal((4, 3, 3, 8, KY, KX))
+    W = rng.standard_normal((4, nd, nd, 8, KY, KX))
     iy, ix = np.arange(KY)[:, None], np.arange(KX)[None, :]
     for k in range(8):
         for s in range(3):
@@ -84,9 +86,9 @@ def _random_planes(plan, lattice, seed, dtype):
     return torch.as_tensor(W, dtype=dtype)
 
 
-def _x(lattice, seed, dtype):
+def _x(lattice, seed, dtype, nd=3):
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.standard_normal((3, 8) + tuple(lattice)), dtype=dtype)
+    return torch.as_tensor(rng.standard_normal((nd, 8) + tuple(lattice)), dtype=dtype)
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
@@ -145,6 +147,21 @@ def test_wrapper_rejects_bad_inputs(setup):
         plane_spmv(W, X.transpose(2, 3).contiguous().transpose(2, 3), splan.plan)
 
 
+@pytest.mark.parametrize("nd", [6, 10])
+def test_wrapper_takes_higher_nd_and_rejects_others(setup, nd):
+    """The P2 / P3 widths route to the plain version on the CPU, uncounted;
+    nd = 4 (which no structured space produces) raises."""
+    _, splan = setup
+    W = _random_planes(splan.plan, splan.lattice, nd, torch.float64, nd)
+    X = _x(splan.lattice, nd + 1, torch.float64, nd)
+    before = plane_spmv.launches
+    y = plane_spmv(W, X, splan.plan)
+    assert plane_spmv.launches == before and y.shape == X.shape
+    assert torch.equal(y, plane_spmv_reference(W, X, splan.plan))
+    with pytest.raises(ValueError):
+        plane_spmv(W[:, :4, :4].contiguous(), X[:4].contiguous(), splan.plan)
+
+
 def test_cpu_routes_to_plain_version_uncounted(setup):
     _, splan = setup
     W = _random_planes(splan.plan, splan.lattice, 5, torch.float64)
@@ -177,3 +194,20 @@ def test_kernel_matches_plain_on_card(cuda_device, setup, dtype, rel):
         y_ref = plane_spmv_reference(W, X, splan.plan)
         err = (y - y_ref).abs().max().item()
         assert err <= rel * y_ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd", [6, 10])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_kernel_matches_plain_on_card_at_higher_nd(cuda_device, setup, nd, dtype, rel):
+    _, splan = setup
+    W = _random_planes(splan.plan, splan.lattice, 9, dtype, nd).to(cuda_device)
+    X = _x(splan.lattice, 10, dtype, nd).to(cuda_device)
+    before = dict(plane_spmv.case_launches)
+    y = plane_spmv(W, X, splan.plan)
+    torch.cuda.synchronize()
+    case = f"nd{nd}_{'f32' if dtype == torch.float32 else 'f64'}"
+    assert plane_spmv.case_launches[case] == before.get(case, 0) + 1
+    y_ref = plane_spmv_reference(W, X, splan.plan)
+    err = (y - y_ref).abs().max().item()
+    assert err <= rel * y_ref.abs().max().item(), err

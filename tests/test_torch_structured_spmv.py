@@ -12,8 +12,9 @@ On the CPU, at 1e-5 x max in float32:
   layout with the structured order's offsets, it equals plane_spmv's plain
   version.
 
-The ``cuda`` test holds the CUDA kernel to the plain version on the card (it
-needs no JAX: run it there with
+The wrapper takes nd in {3, 6, 10} DoF per cell (DG P1-P3) and no other.
+The ``cuda`` tests hold the CUDA kernel to the plain version on the card, at
+nd = 3, 6 and 10 (they need no JAX: run them there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_structured_spmv.py``).
 """
 import numpy as np
@@ -147,6 +148,18 @@ def test_wrapper_rejects_bad_inputs():
         structured_spmv(torch.as_tensor(np.moveaxis(blocks, 0, -1)), X, offsets)  # strided
 
 
+@pytest.mark.parametrize("nd", [6, 10])
+def test_wrapper_takes_higher_nd(nd):
+    """The P2 / P3 widths route to the plain version on the CPU, uncounted,
+    and equal the plane layout's plain SpMV on the same random blocks."""
+    neighbors, blocks, offsets, x = _random(4096, nd, nd)
+    A = structured_from_numpy(neighbors, blocks, offsets, "cpu")
+    before = structured_spmv.launches
+    y = A.matvec(torch.as_tensor(x))
+    assert structured_spmv.launches == before
+    assert torch.equal(y, structured_spmv_reference(A.planes, torch.as_tensor(x), A.offsets))
+
+
 def test_cpu_routes_to_plain_version_uncounted():
     neighbors, blocks, offsets, x = _random(4000, 5)
     P = torch.as_tensor(np.moveaxis(blocks, 0, -1).copy())
@@ -164,9 +177,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nc", [4096, 4000])
-def test_kernel_matches_plain_on_card(cuda_device, nc):
-    neighbors, blocks, offsets, x = _random(nc, 6)
+@pytest.mark.parametrize("nc,nd", [(4096, 3), (4000, 3), (4000, 6), (4000, 10)])
+def test_kernel_matches_plain_on_card(cuda_device, nc, nd):
+    neighbors, blocks, offsets, x = _random(nc, 6, nd)
     A = structured_from_numpy(neighbors, blocks, offsets, cuda_device)
     X = torch.as_tensor(x).to(cuda_device)
     before = structured_spmv.launches

@@ -201,14 +201,19 @@ def test_reference_operator_through_convert():
 
 
 def test_stencil_cg_falls_back_on_unstructured_grid_and_errors():
-    """An odd lattice has no structured cell order: stencil_cg runs block_cg."""
+    """An odd lattice has no structured cell order: stencil_cg runs block_cg.
+    gmres.jacobi there equals the reference's gmres.jacobi solution."""
+    from dune_hdd_tpu.grid.structured import rectangle_grid as j_rect
+
     d = TD(t_rect((0, 0), (1, 1), (5, 5)), DIRICHLET, tp.ThermalblockProblem((2, 2)),
            device="cpu")
     u = d.solve(MU, options={"type": "stencil_cg", "precision": 1e-12})
     assert d.last_solve_info["type"] == "block_cg.jacobi"
     _close(u, d.solve(MU, options={"type": "direct"}), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d.solve(MU, options={"type": "gmres.jacobi"})
+    jd = JD(j_rect((0, 0), (1, 1), (5, 5)), DIRICHLET, jp.ThermalblockProblem((2, 2)))
+    gmres = {"type": "gmres.jacobi", "precision": 1e-10}
+    _close(d.solve(MU, options=gmres),
+           jd.solve({"diffusion_factor": jnp.asarray(MU)}, options=gmres), rel=1e-8)
 
 
 def test_entry_points_default_to_the_card():
