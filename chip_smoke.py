@@ -21,8 +21,11 @@ any phase fails or there is no card.
 
     python3 chip_smoke.py
 
-Phases (one line of output each, each with its seconds): device, build,
-kernel vs plain (plane SpMV at 6 and 2 bisections; structured SpMV on the
+Phases (one line of output each, each with its seconds): device, build
+(registers, shared memory and spills per kernel function; the plane SpMV's
+tile, ring and dynamic shared memory per instantiation), kernel vs plain
+(plane SpMV at 6 and 2 bisections, and bitwise at every nd and dtype on
+random planes with nonzero wrapped blocks; structured SpMV on the
 768k-DoF operator and on random blocks; probe bitwise at three sizes and on
 offset views, both of its paths), main path at 6 bisections, structured
 path, probe path, kernel path vs plain path at 4 bisections, kernel timing
@@ -39,7 +42,8 @@ columns, [8 8 1] to level 6 with EOC and efficiency), the OS2014 parametric
 [20 4 1] study against its 384,000-DoF reference, the block provenance
 check (768k and 3.07M DoF) and the
 thermalblock online solves (block_cg through make_solve_fn, each rechecked
-in float64, one stencil_cg solve, RT0 local conservation and eta_ESV2007),
+in float64, one stencil_cg solve, the plane SpMV timed on its (256, 256)
+f64 operator, RT0 local conservation and eta_ESV2007),
 the RB workflow on the same grid (BlockSWIPDG [2 2]: the RB and LRBMS greedy
 with the Riesz estimator and stencil_cg snapshots, their errors at the 8
 solved mu, the batched online sweep over 1,024 mu against single solves,
@@ -51,15 +55,24 @@ by both SpMV kernels at its nd (against their plain versions, timed beside
 the BSR library call, and an f32 power iteration through each); the cube
 Q1 study (levels 0-6, the recorded cube table, RT0 conservation) and Q2
 (levels 0-5); CG P2 / P3 / Q2 (levels 0-5); interval SWIPDG; gmres and
-gmres.jacobi at ESV2007 level 3.  Then a JSON line of the kernels (one row
-per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, and per
-structured_spmv nd), the card's name and power limit, and last
-{"ok": true, ...}.
+gmres.jacobi at ESV2007 level 3.  Then the plane SpMV's launches per
+instantiation and lattice with each one's share, a JSON line of the kernels
+(one row per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, one
+for its (256, 256) f64 lattice, and one per structured_spmv nd), the card's
+name and power limit, and last {"ok": true, ...}.
+
+    python3 chip_smoke.py --plane-rows [--library]
+
+builds the plane SpMV only and times it at the driven paths' lattices on
+random planes, against its bound (with --library also its plain version and
+the BSR call).
 """
 import copy
 import json
+import re
 import statistics
 import subprocess
+import sys
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -76,7 +89,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 _T0 = time.perf_counter()
 _LAST = [_T0]
 # plane_spmv launches on the paths driven, by instantiation ("nd3_f32", ...)
+# and by instantiation and lattice ("nd3_f64 256x256", ...)
 PATH_LAUNCHES = Counter()
+PATH_LATTICE_LAUNCHES = Counter()
 
 
 def start_path():
@@ -85,14 +100,17 @@ def start_path():
 
     plane_spmv.launches = 0
     plane_spmv.case_launches.clear()
+    plane_spmv.lattice_launches.clear()
 
 
 def end_path() -> int:
     """Reads plane_spmv's launch counts just after a path, adds them to
-    PATH_LAUNCHES by instantiation and returns their sum."""
+    PATH_LAUNCHES by instantiation and to PATH_LATTICE_LAUNCHES by
+    instantiation and lattice, and returns their sum."""
     from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
 
     PATH_LAUNCHES.update(plane_spmv.case_launches)
+    PATH_LATTICE_LAUNCHES.update(plane_spmv.lattice_launches)
     return plane_spmv.launches
 
 
@@ -132,16 +150,68 @@ def phase_device():
         nvcc=repr(nvcc), count=torch.cuda.device_count())
 
 
-def phase_build():
-    """One nvcc per source, all started together."""
+def ptxas_summary(compiler_log):
+    """Per kernel function of an ``nvcc -Xptxas -v`` log: registers, static
+    shared memory, stack frame and spill bytes.  Template instantiations
+    ``<nd, float|double, ...>`` are named ``nd<nd>_<f32|f64>``."""
+    out, name = {}, None
+    for line in compiler_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"ILi(\d+)E([fd])", m.group(1))
+            name = f"nd{t.group(1)}_{'f32' if t.group(2) == 'f' else 'f64'}" if t else m.group(1)
+            out[name] = {"registers": 0, "smem": 0, "stack": 0, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def phase_build(names=tuple(KERNELS)):
+    """One nvcc per source, all started together; prints each kernel
+    function's registers, static shared memory, stack and spills, and fails
+    on a spill or a stack frame of plane_spmv."""
     from dune_hdd_tpu_torch.kernels import build
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        results = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    with ThreadPoolExecutor(len(names)) as pool:
+        results = dict(zip(names, pool.map(build.build, names)))
     for name, (lib, seconds, compiler_log) in results.items():
-        ptxas = [ln.strip() for ln in compiler_log.splitlines() if "registers" in ln]
         log("build", kernel=name, library=lib.name, compiled_now=bool(compiler_log),
-            nvcc_seconds=f"{seconds:.2f}", ptxas=repr("; ".join(ptxas)))
+            nvcc_seconds=f"{seconds:.2f}")
+        for fn, info in ptxas_summary(compiler_log).items():
+            log("ptxas", kernel=name, function=fn, **info)
+            if name == "plane_spmv" and (info["stack"] or info["spill_stores"]
+                                         or info["spill_loads"]):
+                raise AssertionError(f"plane_spmv {fn}: stack frame or spills {info}")
+    if "plane_spmv" in names:
+        log_plane_geometry()
+
+
+def log_plane_geometry():
+    """plane_spmv's tile, staged X box, ring and dynamic shared memory per
+    instantiation under the ESV plan (the same at every lattice)."""
+    from dune_hdd_tpu_torch.kernels import plane_spmv as mod
+
+    if not hasattr(mod, "plane_geometry"):  # --plane-rows in a tree before the tiled kernel
+        return
+    plan = esv_plan()
+    for nd, itemsize in sorted(mod.TILES):
+        g = mod.plane_geometry(nd, itemsize, (256, 256), plan)
+        blocks = min(2, mod.SMEM_PER_SM // (g.smem_bytes + mod.SMEM_RESERVED))
+        log("plane_geometry", case=f"nd{nd}_f{8 * itemsize}", tile=f"{g.TY}x{g.TX}",
+            x_box=f"{g.BY}x{g.BX}", stages=g.stages, dynamic_smem=g.smem_bytes,
+            blocks_per_sm=blocks, threads=mod.THREADS)
 
 
 def phase_plane_vs_plain(dev):
@@ -166,6 +236,32 @@ def phase_plane_vs_plain(dev):
             f32_max_abs_err=f"{errs[torch.float32]:.3e}",
             f64_max_abs_err=f"{errs[torch.float64]:.3e}")
     return out[6]
+
+
+def phase_plane_random(dev):
+    """plane_spmv bitwise against its plain version at every nd and dtype on
+    random planes whose wrapped blocks are nonzero: lattices smaller than a
+    tile ((4, 4), (8, 8)) and ones no tile divides ((20, 100), (12, 44)),
+    under the ESV plan and a plan whose shifts reach two rows and columns on
+    every side."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
+
+    wide = tuple(tuple(((k + 3 * s + 1) % 8, (k % 5) - 2, ((k + s) % 5) - 2) for s in range(3))
+                 for k in range(8))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cases = 0
+    for plan in (esv_plan(), wide):
+        for nd in (3, 6, 10):
+            for dtype in (torch.float32, torch.float64):
+                for lattice in ((4, 4), (8, 8), (20, 100), (12, 44)):
+                    W = torch.randn((4, nd, nd, 8) + lattice, generator=gen, device=dev,
+                                    dtype=dtype)
+                    X = torch.randn((nd, 8) + lattice, generator=gen, device=dev, dtype=dtype)
+                    if not torch.equal(plane_spmv(W, X, plan), plane_spmv_reference(W, X, plan)):
+                        raise AssertionError(f"plane_spmv differs from its plain version: nd "
+                                             f"{nd} {dtype} {lattice} plan {plan}")
+                    cases += 1
+    log("kernel_vs_plain", kernel="plane_spmv", random_planes_cases=cases, bitwise_equal=True)
 
 
 def flat(X):
@@ -408,25 +504,29 @@ def timed(kernel, label, fn, plain_fn, library_fn, nbytes, flops, dtype, **field
     log("timing", kernel=kernel, case=label, kernel_us=f"{ms * 1e3:.2f}",
         kernel_gbps=f"{nbytes / ms / 1e6:.1f}", plain_us=f"{plain_ms * 1e3:.2f}",
         library_us=f"{library_ms * 1e3:.2f}", bound_us=f"{bound_ms * 1e3:.2f}",
-        bound_by=bound_by, bytes=nbytes, flops=flops, **fields, card=repr(card()))
+        bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}", bytes=nbytes, flops=flops,
+        **fields, card=repr(card()))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
-def time_plane_spmv(S, B, label, W=None):
-    """Checks the plane SpMV against its plain version on these planes and
-    times both, and the BSR library call, in f32 and f64.  Returns ({dtype
-    name: timing fields}, the max abs error over both dtypes); bytes =
-    planes + 2 vectors, operations = one multiply-add per plane entry."""
+def time_plane_spmv(S, B, label, W=None, dtypes=(torch.float32, torch.float64)):
+    """Checks the plane SpMV against its plain version on these planes (the
+    max abs error within the tolerance, and whether the two are bitwise
+    equal) and times both, and the BSR library call, in each of ``dtypes``.
+    Returns ({dtype name: timing fields}, the max abs error over them);
+    bytes = planes + 2 vectors, operations = one multiply-add per plane
+    entry."""
     from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
 
     out, err = {}, 0.0
-    for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    for dtype in dtypes:
+        rel = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
         Wd, X = (S.planes if W is None else W).to(dtype), B.to(dtype)
         name = str(dtype).replace("torch.", "")
-        y = plane_spmv(Wd, X, S.plan)
-        e = rel_check(f"plane_spmv vs plain ({label} {name})", y,
-                      plane_spmv_reference(Wd, X, S.plan), rel)
+        y, y_ref = plane_spmv(Wd, X, S.plan), plane_spmv_reference(Wd, X, S.plan)
+        e = rel_check(f"plane_spmv vs plain ({label} {name})", y, y_ref, rel)
+        bitwise = torch.equal(y, y_ref)
         err = max(err, e)
         A, x = bsr_operator(Wd, S.plan), flat(X)
         e_lib = rel_check(f"BSR library call vs plane_spmv ({label} {name})", A @ x, flat(y),
@@ -434,10 +534,75 @@ def time_plane_spmv(S, B, label, W=None):
         out[name] = timed("plane_spmv", f"{label} {name}", lambda: plane_spmv(Wd, X, S.plan),
                           lambda: plane_spmv_reference(Wd, X, S.plan), lambda: A @ x,
                           (Wd.numel() + 2 * X.numel()) * Wd.element_size(), 2 * Wd.numel(),
-                          dtype, dofs=X.numel(), max_abs_err=f"{e:.3e}",
+                          dtype, dofs=X.numel(), lattice="x".join(map(str, S.lattice)),
+                          max_abs_err=f"{e:.3e}", bitwise_equal=bitwise,
                           library_max_abs_diff=f"{e_lib:.3e}")
-        del Wd, X, A, x, y
+        del Wd, X, A, x, y, y_ref
     return out, err
+
+
+# plane_spmv's rows: (case, nd, lattice) of the driven paths' operators
+PLANE_ROWS = (("12.29M bench", 3, (320, 1600)), ("level 6 ESV / thermalblock", 3, (256, 256)),
+              ("768k bench", 3, (80, 400)), ("P2 level 6", 6, (256, 256)),
+              ("P3 level 5", 10, (128, 128)), ("level 4 ESV", 3, (64, 64)),
+              ("P3 level 4", 10, (64, 64)))
+
+
+def esv_plan():
+    """The stencil plan of the ALU-conforming (4, 4) macro grid: that of every
+    structured operator the driven paths build (the bench's too)."""
+    from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
+    from dune_hdd_tpu_torch.grid.structured_order import structured_cell_order
+    from dune_hdd_tpu_torch.la.stencil import stencil_plan
+
+    grid = alu_cube_grid((0, 0), (1, 1), (4, 4), refinements=2)
+    return stencil_plan(structured_cell_order(grid, (0, 0), (1, 1)))
+
+
+def plane_rows(dev, library=False):
+    """plane_spmv at each row of PLANE_ROWS, f32 and f64, on random planes
+    (seeded on the card; wrapped blocks nonzero) with the ESV plan: bitwise
+    against its plain version, device time against the bytes bound, the
+    host's time per call (200 calls enqueued back to back); with
+    ``library`` also the plain version's and the BSR call's times.  The
+    kernel's time does not depend on the planes' values, so these rows time
+    the same work as the assembled operators of the same lattice."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
+
+    plan = esv_plan()
+    gen = torch.Generator(device=dev)
+    for label, nd, (KY, KX) in PLANE_ROWS:
+        for dtype in (torch.float32, torch.float64):
+            gen.manual_seed(nd * KY * KX)
+            W = torch.randn((4, nd, nd, 8, KY, KX), generator=gen, device=dev, dtype=dtype)
+            X = torch.randn((nd, 8, KY, KX), generator=gen, device=dev, dtype=dtype)
+            y = plane_spmv(W, X, plan)
+            bitwise = torch.equal(y, plane_spmv_reference(W, X, plan))
+            nbytes = (W.numel() + 2 * X.numel()) * W.element_size()
+            ms = time_calls(lambda: plane_spmv(W, X, plan))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):  # the host's side of a call: enqueued, not waited for
+                plane_spmv(W, X, plan)
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            bound_ms, bound_by = bound(nbytes, 2 * W.numel(), dtype)
+            fields = {}
+            if library:
+                A, x = bsr_operator(W, plan), flat(X)
+                plain_ms = time_calls(lambda: plane_spmv_reference(W, X, plan))
+                fields = dict(plain_us=f"{plain_ms * 1e3:.2f}",
+                              library_us=f"{time_calls(lambda: A @ x) * 1e3:.2f}")
+                del A, x
+            name = str(dtype).replace("torch.", "")
+            log("plane_row", case=label, nd=nd, lattice=f"{KY}x{KX}", dtype=name,
+                kernel_us=f"{ms * 1e3:.2f}", bound_us=f"{bound_ms * 1e3:.2f}", bound_by=bound_by,
+                share=f"{bound_ms / ms:.3f}", bitwise_equal=bitwise,
+                host_us_per_call=f"{host_us:.2f}", **fields, card=repr(card()))
+            if not bitwise:
+                raise AssertionError(f"plane_spmv differs from its plain version ({label} {name})")
+            del W, X, y
+            torch.cuda.empty_cache()
 
 
 def phase_timing_768k(dev, S, B, A, b_flat):
@@ -936,7 +1101,8 @@ def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
     SparseMatrix.matvec; one mu also through stencil_cg.  The launch count
     is set to 0 just before and read just after.  Returns (launches, the
     kernel's max abs error on this operator, (the grid, the mu [count, 4],
-    the solutions))."""
+    the solutions), the kernel's f64 timing fields on this (256, 256)
+    operator)."""
     from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
     from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
     from dune_hdd_tpu_torch.problems import ThermalblockProblem
@@ -984,13 +1150,17 @@ def phase_thermalblock_online(dev, seed=17, count=8, bisections=14):
     if not (info["type"] == "stencil_cg" and diff <= 1e-5 and launches > 0):
         raise AssertionError(f"stencil_cg: {info}, rel diff {diff:.3e}, {launches} launches")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    err = check_plane_spmv_at(d.stencil_system(mus[0]), "thermalblock 14 bisections")
+    system = d.stencil_system(mus[0])
+    err = check_plane_spmv_at(system, "thermalblock 14 bisections")
+    row, _ = time_plane_spmv(system.S, system.B, "thermalblock 14 bisections",
+                             dtypes=(torch.float64,))
+    del system
     time_general_spmvs(d, mus[0], first)
     log("thermalblock_stencil_cg", iterations=info["iterations"], seconds=f"{seconds:.3f}",
         rel_max_diff_vs_block_cg=f"{diff:.3e}", launches=launches, peak_gb=f"{peak:.2f}",
         plane_spmv_f64_max_abs_err=f"{err:.3e}", card=repr(card()))
     phase_thermalblock_estimators(d, mus[0], first)
-    return launches, err, (grid, mus, solutions)
+    return launches, err, (grid, mus, solutions), row["float64"]
 
 
 def phase_thermalblock_estimators(d, mu, u):
@@ -1701,6 +1871,7 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     bench6, S6, B6, plane_err = phase_plane_vs_plain(dev)
+    phase_plane_random(dev)
     A6, b6, structured_err = phase_structured_vs_plain(dev, bench6, S6, B6)
     probe_err = phase_probe_vs_plain(dev)
 
@@ -1746,7 +1917,7 @@ def main():
     phase_spe10_parametric_block(dev)
     torch.cuda.empty_cache()
     phase_block_provenance(dev)
-    _, err, thermalblock = phase_thermalblock_online(dev)
+    _, err, thermalblock, lattice_256_row = phase_thermalblock_online(dev)
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
     phase_rb_thermalblock(dev, *thermalblock)
@@ -1754,13 +1925,19 @@ def main():
     torch.cuda.empty_cache()
     phase_adaptive_spe10(dev)
     phase_adaptive_os2014(dev)
+    total = sum(PATH_LATTICE_LAUNCHES.values())
     log("done", seconds=f"{time.perf_counter() - _T0:.1f}",
         plane_spmv_launches=repr(dict(PATH_LAUNCHES)))
+    for key, n in PATH_LATTICE_LAUNCHES.most_common():
+        log("plane_spmv_launches", case=repr(key), launches=n, share=f"{n / total:.4f}")
 
     rows = {"plane_spmv_nd3_f32": (dict(plane_times["float32"],
                                         launches=PATH_LAUNCHES["nd3_f32"]), plane_err),
             "plane_spmv_nd3_f64": (dict(plane_times["float64"],
                                         launches=PATH_LAUNCHES["nd3_f64"]), plane_err),
+            "plane_spmv_nd3_f64_256x256": (dict(lattice_256_row,
+                                                launches=PATH_LATTICE_LAUNCHES["nd3_f64 256x256"]),
+                                           plane_err),
             "structured_spmv": (dict(structured_ms, launches=launches["structured_spmv"]),
                                 structured_err),
             "probe": (dict(probe_ms, launches=launches["probe"]), probe_err),
@@ -1778,5 +1955,14 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
+def main_plane_rows():
+    """``--plane-rows``: build plane_spmv and time it at PLANE_ROWS only
+    (kernel against bound; ``--library`` adds the plain and BSR times)."""
+    phase_device()
+    phase_build(("plane_spmv",))
+    plane_rows(torch.device("cuda", 0), library="--library" in sys.argv)
+    print(card())
+
+
 if __name__ == "__main__":
-    main()
+    main_plane_rows() if "--plane-rows" in sys.argv else main()
