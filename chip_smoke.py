@@ -16,8 +16,12 @@ path, and model order reduction: the RB / LRBMS greedy workflow on that
 orders and other cells: SWIPDG P2 to 3.15M DoF and P3 to 1.31M DoF on the
 ESV2007 hierarchy (stencil_cg on the plane SpMV at 6 and 10 DoF per cell,
 the RT1 estimators for P2), Q1 / Q2 on the ESV2007 cube (quad) hierarchy,
-CG P2 / P3 / Q2, interval SWIPDG orders 1-3 and gmres.  Exits non-zero if
-any phase fails or there is no card.
+CG P2 / P3 / Q2, interval SWIPDG orders 1-3 and gmres; then the
+command-line entry point (every example, the ESV2007 level-6 grid through
+--solver stencil_cg, rb, both studies) and the tensor Q1 CG path: the
+manufactured-sine EOC in d = 1, 2, 3 up to 128^3 cells and the 3D
+parametric thermalblock at 2,146,689 DoF through the RB greedy.  Exits
+non-zero if any phase fails or there is no card.
 
     python3 chip_smoke.py
 
@@ -55,7 +59,18 @@ by both SpMV kernels at its nd (against their plain versions, timed beside
 the BSR library call, and an f32 power iteration through each); the cube
 Q1 study (levels 0-6, the recorded cube table, RT0 conservation) and Q2
 (levels 0-5); CG P2 / P3 / Q2 (levels 0-5); interval SWIPDG; gmres and
-gmres.jacobi at ESV2007 level 3.  Then the plane SpMV's launches per
+gmres.jacobi at ESV2007 level 3; the CLI in a temporary directory
+(write-config-then-solve for cg, swipdg, block-swipdg and thermalblock with
+VTU output, each default config's text against the reference writer's
+digest; swipdg on the ESV2007 level-6 grid with --solver stencil_cg, its
+plane SpMV launches counted; rb; study --case esv2007 and --case os2014,
+the FVCA7 poster rows within 2e-3 of the recorded table); the tensor sine
+EOC (d = 1 to 1,024 cells, d = 2 to 512^2, d = 3 to 128^3; EOC 1.9 / 0.95);
+the 3D thermalblock at 128^3 cells (set-up by step, 8 cg.jacobi solves
+rechecked in float64 to 1e-8, mu = 1 against constant diffusion, the
+true-error greedy, the scalar-ELL SpMV against its bound); the same at 24^3
+with the Riesz-estimator greedy, its certification and the batched online
+sweep; the 2D TensorCG batched-online cases.  Then the plane SpMV's launches per
 instantiation and lattice with each one's share, a JSON line of the kernels
 (one row per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, one
 for its (256, 256) f64 lattice, and one per structured_spmv nd), the card's
@@ -69,6 +84,7 @@ the BSR call).
 """
 import copy
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1829,6 +1845,456 @@ def phase_gmres(dev, tc):
                 rel_max_diff_vs_direct=f"{diff:.3e}", seconds=f"{seconds:.3f}")
 
 
+# -- the command-line entry point and the tensor Q1 CG path --------------------
+
+CLI_EXAMPLES = ("cg", "swipdg", "block-swipdg", "thermalblock")
+# the ESV2007 level-6 grid through the CLI's config: the 4x4 criss
+# triangulation of [-1, 1]^2 with 14 conforming bisections, 1,572,864 DoF
+CLI_LEVEL6 = {"grid.type": "stuff.grid.provider.alu_conforming", "grid.lower_left": [-1, -1],
+              "grid.upper_right": [1, 1], "grid.num_elements": [4, 4],
+              "grid.num_refinements": 14}
+# sha256 of each example's default config text as the reference package
+# writes it (tests/test_torch_cli.py holds these to the reference's writer)
+CLI_CONFIG_SHA256 = {
+    "cg": "0ea7ef8e1b106f0bfed7c218e218ddcc9dcb1bec235c60d9b0ee402ecca46803",
+    "swipdg": "0ea7ef8e1b106f0bfed7c218e218ddcc9dcb1bec235c60d9b0ee402ecca46803",
+    "block-swipdg": "2d50da5bff265846d958b18af0e7e778f60e07b53c5ffec802dd4f5f209b3c9d",
+    "thermalblock": "0ec639fac202b1db04f6e6b9d6ae1c7155ad38d9c673a6a6b0c5d996335a3f44",
+}
+# the reference's eff_OS2014 recordings at the first level (BASELINE.md)
+FVCA7_EFF_LEVEL0 = {"[1 1 1]": 3.35, "[2 2 1]": 2.47, "[4 4 1]": 2.03, "[8 8 1]": 1.81}
+TENSOR_CG_OPTS = {"type": "cg.jacobi", "precision": 1e-12, "max_iter": 20000}
+# dim -> (initial cells per axis, refinements): 8 -> 1,024 cells, 4^2 -> 512^2,
+# 4^3 -> 128^3 (2,146,689 DoF)
+TENSOR_EOC = {1: (8, 7), 2: (4, 7), 3: (4, 5)}
+TB3D_CELLS = 128      # 129^3 = 2,146,689 DoF
+TB3D_RIESZ_CELLS = 24  # 15,625 DoF: the host splu of the 3D h1_semi product fills in
+TB3D_OPTS = {"type": "cg.jacobi", "precision": 1e-10, "max_iter": 20000}
+TB3D_TRAINING = 16
+TB3D_EXTENSIONS = 5
+TB3D_ONLINE_MUS = 1024
+
+
+def run_cli(argv):
+    """``dune-hdd-tpu-torch argv`` in this process (on the card, its
+    default); returns what it printed, raising on a non-zero exit."""
+    import contextlib
+    import io
+
+    from dune_hdd_tpu_torch.cli.main import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"dune-hdd-tpu-torch {' '.join(argv)}: exit {rc}\n{out}")
+    return out
+
+
+def cli_solves(out):
+    """[(|u|_max, {solver report})] of an example run's output."""
+    umax = [float(v) for v in re.findall(r"\|u\|_max = (\S+)", out)]
+    reports = [dict(kv.split("=", 1) for kv in line.split(", "))
+               for line in re.findall(r"solver: (.*)", out)]
+    return list(zip(umax, reports))
+
+
+def phase_cli(dev):
+    """The port's command-line entry point in a temporary directory, on the
+    card: write-config-then-solve for every example (each parameter block,
+    VTU output); the ESV2007 level-6 grid through the config with
+    --solver stencil_cg (plane_spmv launches counted); the RB greedy of the
+    default thermalblock config; both studies, the FVCA7 poster rows held to
+    the recorded table at 2e-3; each default config's text against the
+    reference writer's digest and through a write / read round trip."""
+    import hashlib
+    import os
+    import tempfile
+
+    from dune_hdd_tpu_torch.cli.examples import (
+        LinearellipticExampleBlockSWIPDG, LinearellipticExampleCG, LinearellipticExampleSWIPDG,
+        ThermalblockExample)
+    from dune_hdd_tpu_torch.studies.expectations import expected_results
+    from dune_hdd_tpu_torch.utils.config import Configuration
+
+    classes = {"cg": LinearellipticExampleCG, "swipdg": LinearellipticExampleSWIPDG,
+               "block-swipdg": LinearellipticExampleBlockSWIPDG,
+               "thermalblock": ThermalblockExample}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name in CLI_EXAMPLES:
+                t0 = time.perf_counter()
+                if "wrote default config" not in run_cli([name]):
+                    raise AssertionError(f"{name}: no default config written")
+                text = classes[name].write_config().to_string()
+                digest = hashlib.sha256(text.encode()).hexdigest()
+                back = Configuration.from_file(f"{classes[name].static_id()}.cfg").to_string()
+                if digest != CLI_CONFIG_SHA256[name] or back != text:
+                    raise AssertionError(f"{name}: config text {digest} (round trip "
+                                         f"{back == text})")
+                out = run_cli([name, "--visualize", name])
+                solves = cli_solves(out)
+                files = [f for f in os.listdir() if f.startswith(name + "_mu_")]
+                if not (len(solves) == 2 and all(math.isfinite(u) and u > 0 for u, _ in solves)
+                        and len(files) == 2):
+                    raise AssertionError(f"{name}: {out}")
+                log("cli", example=name, dofs=re.search(r": (\d+) DoF", out).group(1),
+                    u_max=repr([u for u, _ in solves]),
+                    solver=solves[0][1].get("type"), iterations=solves[0][1].get("iterations"),
+                    config_sha256=digest[:12], vtu=len(files),
+                    seconds=f"{time.perf_counter() - t0:.2f}")
+
+            cfg = Configuration.from_file(f"{LinearellipticExampleSWIPDG.static_id()}.cfg")
+            for key, value in CLI_LEVEL6.items():
+                cfg[key] = value
+            cfg.write("esv2007_level6.cfg")
+            t0 = time.perf_counter()
+            start_path()
+            out = run_cli(["swipdg", "esv2007_level6.cfg", "--solver", "stencil_cg"])
+            launches = end_path()
+            (umax, report), = set((u, tuple(r.items())) for u, r in cli_solves(out))
+            report = dict(report)
+            dofs = int(re.search(r": (\d+) DoF", out).group(1))
+            expected_dofs = 3 * 32 * 2 ** CLI_LEVEL6["grid.num_refinements"]
+            if not (report["type"] == "stencil_cg" and launches > 0 and dofs == expected_dofs
+                    and abs(umax - 1.0) < 1e-2):
+                raise AssertionError(f"level-6 stencil_cg: {launches} launches\n{out}")
+            log("cli_stencil_cg", dofs=dofs, u_max=umax, iterations=report["iterations"],
+                rtol=report["rtol"], launches=launches,
+                seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card()))
+
+            t0 = time.perf_counter()
+            out = run_cli(["rb"])
+            size, err = re.search(r"final basis size (\d+), max error (\S+)", out).groups()
+            if not float(err) <= 1e-6:
+                raise AssertionError(f"rb: {out}")
+            log("cli_rb", basis_size=int(size), max_error=err,
+                seconds=f"{time.perf_counter() - t0:.2f}")
+
+            t0 = time.perf_counter()
+            out = run_cli(["study", "--case", "esv2007"])
+            eff = [float(v) for v in re.search(r"eff_ESV2007: (.*)", out).group(1).split()]
+            if not np.allclose(eff, [1.3666, 1.2771, 1.2326], atol=1e-2):
+                raise AssertionError(f"study esv2007: {out}")
+            log("cli_study", case="esv2007", eff_ESV2007=repr(eff),
+                seconds=f"{time.perf_counter() - t0:.2f}")
+
+            t0 = time.perf_counter()
+            out = run_cli(["study", "--case", "os2014"])
+            rows = {}
+            for part, lvl, e, eta, eff in re.findall(
+                    r"(\[\d+ \d+ 1\])\s+(\d+)\s+(\S+)\s+(\S+)\s+(\S+)", out):
+                for typ, v in (("energy", e), ("eta_OS2014", eta), ("eff_OS2014", eff)):
+                    rows.setdefault(part, {}).setdefault(typ, []).append(float(v))
+            if set(rows) != set(FVCA7_EFF_LEVEL0):
+                raise AssertionError(f"study os2014: {out}")
+            worst = 0.0
+            for part, r in rows.items():
+                for typ, vals in r.items():
+                    exp = np.asarray(expected_results(f"FVCA7.poster.{part}", "alu_conforming",
+                                                      1, typ))
+                    worst = max(worst, float(np.max(np.abs(np.asarray(vals) - exp) / exp)))
+                if abs(r["eff_OS2014"][0] - FVCA7_EFF_LEVEL0[part]) >= 0.01 * 3.4:
+                    raise AssertionError(f"{part}: eff {r['eff_OS2014'][0]}")
+            if not worst <= 2e-3:
+                raise AssertionError(f"FVCA7 poster rows {worst:.3e} from the recorded table")
+            log("cli_study", case="os2014", partitionings=len(rows),
+                max_rel_diff_vs_recorded=f"{worst:.3e}",
+                eff_level0=repr({p: r["eff_OS2014"][0] for p, r in rows.items()}),
+                seconds=f"{time.perf_counter() - t0:.2f}")
+        finally:
+            os.chdir(cwd)
+
+
+def tensor_cg(grid, boundary_info, problem, device):
+    """The EOC study's factory: TensorCG without the products it does not read."""
+    from dune_hdd_tpu_torch.discretizations import TensorCGDiscretization
+
+    return TensorCGDiscretization(grid, boundary_info, problem, only_these_products=(),
+                                  device=device)
+
+
+def phase_tensor_eoc(dev):
+    """The manufactured sine on [0,1]^d through EocStudy and TensorCG (Q1,
+    cg.jacobi 1e-12): d = 1 from 8 to 1,024 cells, d = 2 from 4^2 to 512^2,
+    d = 3 from 4^3 to 128^3 (2,146,689 DoF); EOC(L2) >= 1.9 and
+    EOC(H1_semi) >= 0.95 between the last three levels."""
+    from dune_hdd_tpu_torch.studies import EocStudy, eoc_rates
+    from dune_hdd_tpu_torch.testcases.tensor import TensorSineTestcase
+
+    for dim, (cells, refinements) in TENSOR_EOC.items():
+        t0 = time.perf_counter()
+        tc = TensorSineTestcase(dim, initial_cells=cells, num_refinements=refinements)
+        study = EocStudy(tc, tensor_cg, norms=("L2", "H1_semi"), solver_options=TENSOR_CG_OPTS,
+                         device=dev)
+        results = study.run(verbose=False)
+        eoc_l2, eoc_h1 = eoc_rates(results["L2"]), eoc_rates(results["H1_semi"])
+        for r, info in enumerate(study.level_info):
+            log("tensor_eoc_level", dim=dim, level=r, cells=tc.level_grid(r).num_cells,
+                dofs=info["num_dofs"], L2=f"{results['L2'][r]:.4e}",
+                H1_semi=f"{results['H1_semi'][r]:.4e}", iterations=info["iterations"],
+                time_to_solution=f"{study.time_to_solution[r]:.3f}",
+                assembly_seconds=f"{info['assembly_seconds']:.3f}",
+                solve_seconds=f"{info['solve_seconds']:.3f}")
+        log("tensor_eoc", dim=dim, levels=f"0-{refinements}",
+            eoc_L2=repr([round(e, 4) for e in eoc_l2]),
+            eoc_H1_semi=repr([round(e, 4) for e in eoc_h1]),
+            seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card()))
+        if not (min(eoc_l2[-2:]) >= 1.9 and min(eoc_h1[-2:]) >= 0.95):
+            raise AssertionError(f"tensor EOC d={dim}: {eoc_l2}, {eoc_h1}")
+        del study
+        torch.cuda.empty_cache()
+
+
+def tb3d_mus(seed, count):
+    """``count`` thermalblock parameters 10^U(-1, 1) per block."""
+    rng = np.random.default_rng(seed)
+    return [{"diffusion_factor": 10 ** rng.uniform(-1, 1, 8)} for _ in range(count)]
+
+
+def timed_solve(d, mu, opts):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = d.solve(mu, opts)
+    torch.cuda.synchronize()
+    return u, time.perf_counter() - t0
+
+
+def phase_thermalblock_3d(dev):
+    """The ThermalblockExample<SGrid<3,3>> instantiation at 128^3 Q1 cells
+    (2,146,689 DoF), [2 2 2] blocks: set-up seconds by step, 8 mu from
+    default_rng(17) each solved by cg.jacobi to a float64-rechecked
+    ||b - A u|| / ||b|| <= 1e-8, mu = 1 against the constant-diffusion solve
+    to 1e-10, the true-error RB greedy (16 training mu from default_rng(7),
+    5 extensions, gram_schmidt in h1_semi: the maximum errors decrease), the
+    reduced model's relative h1_semi errors at the 8 mu, and the plain
+    scalar-ELL SpMV timed against its bound."""
+    from dune_hdd_tpu_torch.cli.examples import ThermalblockExample
+    from dune_hdd_tpu_torch.discretizations import TensorCGDiscretization
+    from dune_hdd_tpu_torch.mor import greedy_rb
+    from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_timings()
+    t0 = time.perf_counter()
+    d = ThermalblockExample(device=dev).initialize_tensor(
+        dim=3, num_elements=TB3D_CELLS, num_blocks=(2, 2, 2)).discretization()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = d.space.num_dofs
+    if not (n == (TB3D_CELLS + 1) ** 3 and d.get_operator().num_components == 8):
+        raise AssertionError(f"{n} DoF, {d.get_operator().num_components} components")
+    split = {k.split(".")[1]: sum(v) for k, v in timings().items() if k.startswith("tensor_cg.")}
+    log("thermalblock_3d_setup", dofs=n, cells=d.space.grid.num_cells,
+        nnz=d.pattern().nnz, raw_entries=d.pattern().num_raw, ell_width=d.pattern().ell_width,
+        seconds=f"{setup_s:.2f}", **{f"{k}_seconds": f"{v:.2f}" for k, v in split.items()},
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
+
+    mus = tb3d_mus(17, 8)
+    solutions = []
+    for i, mu in enumerate(mus):
+        u, seconds = timed_solve(d, mu, TB3D_OPTS)
+        info = d.last_solve_info
+        A, b = d.freeze_operator(mu), d.freeze_rhs(mu)
+        res = float(torch.linalg.norm(b - A.matvec(u)) / torch.linalg.norm(b))
+        del A
+        if not res <= 1e-8:
+            raise AssertionError(f"mu {i}: relative residual {res:.3e} ({info})")
+        solutions.append(u)
+        log("thermalblock_3d_solve", i=i, mu=repr([round(float(m), 4) for m in mu["diffusion_factor"]]),
+            iterations=info["iterations"], seconds=f"{seconds:.3f}",
+            ms_per_iteration=f"{seconds / info['iterations'] * 1e3:.3f}",
+            rel_residual_f64=f"{res:.3e}")
+
+    exact_opts = dict(TB3D_OPTS, precision=1e-12)
+    u1, _ = timed_solve(d, {"diffusion_factor": np.ones(8)}, exact_opts)
+    ref = TensorCGDiscretization(d.space.grid, None, only_these_products=(), device=dev)
+    uref, _ = timed_solve(ref, None, exact_opts)
+    diff = float((u1 - uref).abs().max())
+    del ref, uref
+    if not diff <= 1e-10:
+        raise AssertionError(f"mu = 1 against constant diffusion: {diff:.3e}")
+
+    training = tb3d_mus(7, TB3D_TRAINING)
+    reset_timings()
+    t0 = time.perf_counter()
+    res = greedy_rb(d, training, target_error=1e-8, max_extensions=TB3D_EXTENSIONS,
+                    extension_algorithm="gram_schmidt", error_norm="h1_semi",
+                    solver_options=TB3D_OPTS)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    split = {k[4:]: sum(v) for k, v in timings().items() if k.startswith("mor.")}
+    errs = [e for e in res.max_errors if e >= 0]
+    rm = res.reduced_model
+    h1 = d.product_matrix("h1_semi")
+    rel = [rel_norm(u - rm.reconstruct(rm.solve(mu)), u, h1) for mu, u in zip(mus, solutions)]
+    log("thermalblock_3d_greedy", training=len(training), extensions=res.extensions,
+        max_errors=repr([float(f"{e:.6e}") for e in res.max_errors]),
+        seconds=f"{greedy_s:.2f}", **{f"{k}_seconds": f"{v:.2f}" for k, v in split.items()},
+        rel_h1_semi_at_8_mu=repr([float(f"{e:.4e}") for e in rel]),
+        mu1_vs_constant_max_abs=f"{diff:.3e}")
+    if not (res.extensions == TB3D_EXTENSIONS and len(errs) >= 2 and errs[-1] < errs[0]
+            and all(math.isfinite(e) for e in rel)):
+        raise AssertionError(f"3D greedy: {res.max_errors}, {rel}")
+
+    A = d.freeze_operator(mus[0])
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    x = torch.randn(n, generator=gen, dtype=torch.float64).to(dev)
+    k = A.ell.shape[1]
+    ms = time_calls(lambda: A.matvec(x))
+    nbytes = n * k * 16 + 2 * n * 8  # values + int64 columns + x + y
+    log("plain_spmv_timing", op="SparseMatrix.matvec", case="thermalblock 3D Q1", dofs=n,
+        ell_width=k, float64=True, us=f"{ms * 1e3:.2f}",
+        device_ops_per_call=count_device_ops(lambda: A.matvec(x)), bytes=nbytes,
+        gbps=f"{nbytes / ms / 1e6:.1f}", bound_us=f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
+
+
+def phase_thermalblock_3d_riesz(dev):
+    """The same problem at 24^3 cells (15,625 DoF: the host splu of the 3D
+    h1_semi product fills in, 14.1M L+U nonzeros here and 57.7M at 32^3,
+    scripts/torch_splu_fill.py): the
+    Riesz-estimator greedy with min-theta coercivity at mu_bar = 1, the
+    certification 0.99 err <= eta <= 10 err in the mu-energy norm at 5
+    held-out mu, and the batched online sweep over 1,024 mu against the
+    loop."""
+    from dune_hdd_tpu_torch.cli.examples import ThermalblockExample
+    from dune_hdd_tpu_torch.mor import greedy_rb, min_theta_coercivity
+    from dune_hdd_tpu_torch.mor.batch import (
+        batched_estimates, batched_reduced_solve, stack_parameters)
+
+    t_phase = time.perf_counter()
+    d = ThermalblockExample(device=dev).initialize_tensor(
+        dim=3, num_elements=TB3D_RIESZ_CELLS, num_blocks=(2, 2, 2)).discretization()
+    opts = dict(TB3D_OPTS, precision=1e-13, max_iter=30000)
+    alpha = min_theta_coercivity(d.get_operator(),
+                                 d.problem.parse_parameter({"diffusion_factor": np.ones(8)}))
+    training = tb3d_mus(7, TB3D_TRAINING)
+    t0 = time.perf_counter()
+    res = greedy_rb(d, training, target_error=1e-8, max_extensions=TB3D_EXTENSIONS,
+                    extension_algorithm="gram_schmidt", error_norm="h1_semi",
+                    use_estimator="riesz", coercivity=alpha, solver_options=opts)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    rm = res.reduced_model
+    online = res.estimator.offline(res.basis)
+    effectivities = []
+    for mu in tb3d_mus(23, 5):
+        u = d.solve(mu, opts)
+        c = rm.solve(mu)
+        e = u - rm.reconstruct(c)
+        err = float(torch.sqrt(torch.clamp(e @ d.freeze_operator(mu).matvec(e), min=0.0)))
+        eta = online.estimate(mu, c)
+        if not 0.99 * err <= eta <= 10.0 * err:
+            raise AssertionError(f"certification: err {err:.3e}, eta {eta:.3e}")
+        effectivities.append(eta / err)
+
+    sweep = tb3d_mus(29, TB3D_ONLINE_MUS)
+    stacked = stack_parameters(d.problem, sweep)
+    coercivities = np.asarray([float(alpha(d.problem.parse_parameter(mu))) for mu in sweep])
+    batched_reduced_solve(rm, stacked)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C = batched_reduced_solve(rm, stacked)
+    etas = batched_estimates(online, rm, stacked, coercivities)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    loop_C = torch.stack([rm.solve(mu) for mu in sweep[:16]])
+    loop_eta = np.asarray([online.estimate(mu, rm.solve(mu)) for mu in sweep[:16]])
+    rel_C = ((C[:16] - loop_C).abs().max() / loop_C.abs().max()).item()
+    rel_eta = float(np.abs(etas[:16] - loop_eta).max() / np.abs(loop_eta).max())
+    log("thermalblock_3d_riesz", dofs=d.space.num_dofs, extensions=res.extensions,
+        max_estimates=repr([float(f"{e:.6e}") for e in res.max_errors]),
+        greedy_seconds=f"{greedy_s:.2f}",
+        effectivities=repr([round(v, 4) for v in effectivities]),
+        online_mus=TB3D_ONLINE_MUS, online_us_per_mu=f"{sweep_s / TB3D_ONLINE_MUS * 1e6:.2f}",
+        rel_diff_batched_vs_loop_solve=f"{rel_C:.3e}",
+        rel_diff_batched_vs_loop_estimate=f"{rel_eta:.3e}",
+        seconds=f"{time.perf_counter() - t_phase:.2f}", card=repr(card()))
+    if not (rel_C <= 1e-10 and np.allclose(etas[:16], loop_eta, rtol=1e-3,
+                                           atol=2e-3 * loop_eta.max())
+            and np.isfinite(etas).all()):
+        raise AssertionError(f"batched vs loop: solve {rel_C:.3e}, estimate {rel_eta:.3e}")
+
+
+def phase_tensor_mor_batch(dev):
+    """The TensorCG cases of the reference's batched-online tests on the 2D
+    thermalblock: at 8x8 cells the batched reduced solves and Riesz
+    estimates (without and with min-theta coercivity) equal the per-mu loop,
+    and the estimator greedy's scores decrease; at 12x12 the Riesz bound
+    certifies the mu-energy error within [0.99, 10]."""
+    from dune_hdd_tpu_torch.discretizations import TensorCGDiscretization
+    from dune_hdd_tpu_torch.grid.tensor import tensor_grid
+    from dune_hdd_tpu_torch.mor import RBReductor, RieszResidualEstimator, greedy_rb
+    from dune_hdd_tpu_torch.mor import min_theta_coercivity
+    from dune_hdd_tpu_torch.mor.batch import (
+        batched_estimates, batched_reduced_solve, stack_parameters)
+    from dune_hdd_tpu_torch.mor.greedy import _extend
+    from dune_hdd_tpu_torch.problems import ThermalblockProblem
+
+    t0 = time.perf_counter()
+    out = {}
+    for cells, seed, count, opts in ((8, 11, 7, TENSOR_CG_OPTS),
+                                     (12, 3, 8, dict(TENSOR_CG_OPTS, precision=1e-13,
+                                                     max_iter=30000))):
+        d = TensorCGDiscretization(tensor_grid((0.0, 0.0), (1.0, 1.0), (cells, cells)), None,
+                                   ThermalblockProblem((2, 2)), device=dev)
+        rng = np.random.default_rng(seed)
+        mus = [{"diffusion_factor": 10 ** rng.uniform(-1, 1, 4)} for _ in range(count)]
+        basis = torch.zeros((0, d.space.num_dofs), dtype=torch.float64, device=dev)
+        for mu in mus[:3]:
+            basis = _extend(basis, d.solve(mu, opts), "gram_schmidt", d.product_matrix("h1_semi"))
+        rm = RBReductor(d).reduce(basis)
+        alpha = min_theta_coercivity(d.get_operator(), d.problem.parse_parameter(
+            mus[0] if cells == 8 else {"diffusion_factor": np.ones(4)}))
+        if cells == 8:
+            stacked = stack_parameters(d.problem, mus)
+            C = batched_reduced_solve(rm, stacked)
+            loop = torch.stack([rm.solve(mu) for mu in mus])
+            out["solve"] = ((C - loop).abs().max() / loop.abs().max()).item()
+            for name, coerc in (("estimate", None), ("estimate_coercivity", alpha)):
+                online = RieszResidualEstimator(d, product="h1_semi",
+                                                coercivity=coerc).offline(basis)
+                cs = (None if coerc is None else
+                      np.asarray([float(coerc(d.problem.parse_parameter(mu))) for mu in mus]))
+                etas = batched_estimates(online, rm, stacked, cs)
+                refs = np.asarray([online.estimate(mu, rm.solve(mu)) for mu in mus])
+                # the reference test's bar: eta ~ 0 at the snapshot mu is a
+                # cancellation of O(1) Gramian terms in both paths
+                if not np.allclose(etas, refs, rtol=1e-3, atol=2e-3 * refs.max()):
+                    raise AssertionError(f"{name}: batched {etas}, loop {refs}")
+                out[name] = float(np.abs(etas - refs).max() / refs.max())
+            res = greedy_rb(d, mus, target_error=1e-10, max_extensions=4, use_estimator=True,
+                            solver_options=opts)
+            errs = [e for e in res.max_errors if e >= 0]
+            if not (len(errs) >= 2 and errs[-1] < errs[0] and np.isfinite(res.max_errors[0])):
+                raise AssertionError(f"estimator greedy: {res.max_errors}")
+            out["greedy_scores"] = [float(f"{e:.4e}") for e in res.max_errors]
+        else:
+            online = RieszResidualEstimator(d, product="h1_semi", coercivity=alpha).offline(basis)
+            effs = []
+            for mu in mus[3:]:
+                u = d.solve(mu, opts)
+                e = u - rm.reconstruct(rm.solve(mu))
+                err = float(torch.sqrt(torch.clamp(e @ d.freeze_operator(mu).matvec(e), min=0.0)))
+                eta = online.estimate(mu, rm.solve(mu))
+                if not 0.99 * err <= eta <= 10.0 * err:
+                    raise AssertionError(f"12x12 certification: err {err:.3e}, eta {eta:.3e}")
+                effs.append(round(eta / err, 4))
+            out["effectivities_12x12"] = effs
+    if not out["solve"] <= 1e-10:
+        raise AssertionError(f"batched vs loop: {out}")
+    log("tensor_mor_batch", rel_diff_batched_vs_loop_solve=f"{out['solve']:.3e}",
+        rel_diff_batched_vs_loop_estimate=f"{out['estimate']:.3e}",
+        rel_diff_with_coercivity=f"{out['estimate_coercivity']:.3e}",
+        greedy_scores=repr(out["greedy_scores"]),
+        effectivities_12x12=repr(out["effectivities_12x12"]),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def count_device_ops(fn):
     """Kernels and copies one call puts on the card, from torch.profiler's
     device events."""
@@ -1913,6 +2379,13 @@ def main():
     phase_gmres(dev, tc)
     del tc
     torch.cuda.empty_cache()
+    phase_cli(dev)
+    torch.cuda.empty_cache()
+    phase_tensor_eoc(dev)
+    phase_thermalblock_3d(dev)
+    torch.cuda.empty_cache()
+    phase_thermalblock_3d_riesz(dev)
+    phase_tensor_mor_batch(dev)
     phase_os2014_parametric(dev)
     phase_spe10_parametric_block(dev)
     torch.cuda.empty_cache()

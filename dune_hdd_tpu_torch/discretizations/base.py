@@ -150,3 +150,15 @@ class StationaryDiscretization:
         if self.purely_neumann:
             u = u - torch.mean(u)
         return u
+
+    def visualize(self, u: torch.Tensor, filename: str, name: str = "solution",
+                  add_dirichlet_shift: bool = True) -> str:
+        """VTK output; re-adds the stored affine "dirichlet" shift vector
+        like the reference (base.hh:125-147).  The values come to the host
+        at the write."""
+        from ..utils.vtk import write_vtu
+
+        v = u
+        if add_dirichlet_shift and "dirichlet" in self._vectors:
+            v = v + self._vectors["dirichlet"].freeze({})
+        return write_vtu(self.space, v, filename, name)

@@ -42,9 +42,10 @@ Points = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _planes(x: Points) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first two coordinates; a point with one coordinate gives it twice."""
     if isinstance(x, tuple):
         return x
-    return x[..., 0], x[..., 1]
+    return x[..., 0], x[..., min(1, x.shape[-1] - 1)]
 
 
 def _like(x: Points, values: np.ndarray) -> torch.Tensor:
@@ -166,12 +167,17 @@ class LambdaFunction(Function):
 class IndicatorFunction(Function):
     """Sum of value_k * 1_{[lower_k, upper_k)}(x).  Boxes are HALF-OPEN so
     adjacent boxes sharing an edge never double-count at points on the
-    shared line."""
+    shared line.  As in the reference, boxes and points are read in their
+    first two coordinates: one with a single coordinate reads it twice (the
+    reference's clamped gathers), and a third coordinate is not read (a 3D
+    box is its 2D box extruded along x_2)."""
 
     def __init__(self, subdomains: Sequence[Tuple[Sequence[float], Sequence[float], float]],
                  name: str = "indicator"):
-        self.boxes = [((float(lo[0]), float(lo[1])), (float(up[0]), float(up[1])), float(v))
-                      for lo, up, v in subdomains]
+        def first_two(p):
+            return float(p[0]), float(p[min(1, len(p) - 1)])
+
+        self.boxes = [(first_two(lo), first_two(up), float(v)) for lo, up, v in subdomains]
         self.order = 0
         self.name = name
         self.range_shape = ()

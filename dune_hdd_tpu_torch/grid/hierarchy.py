@@ -8,7 +8,7 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
-from .structured import Grid, RefinementInfo, interval_grid, rectangle_grid, refine
+from .structured import Grid, RefinementInfo, alu_cube_grid, interval_grid, rectangle_grid, refine
 
 __all__ = ["GridHierarchy", "prolong_vertex_values", "GridProviders"]
 
@@ -118,3 +118,20 @@ GridProviders.register("stuff.grid.provider.cube", _cube_provider)
 GridProviders.register("cube", _cube_provider)
 GridProviders.register("stuff.grid.provider.interval", _interval_provider)
 GridProviders.register("interval", _interval_provider)
+
+
+def _alu_conforming_provider(lower_left=(0.0, 0.0), upper_right=(1.0, 1.0), num_elements=(4, 4),
+                             num_refinements: int = 0, **_ignored) -> Grid:
+    """The reference's ALUGrid<2, 2, simplex, conforming> cube provider:
+    the criss triangulation with ``num_refinements`` global refinements,
+    each one newest-vertex bisection (``alu_cube_grid``; 2 halve h).  With
+    an even count its cells have the structured order of the plane layout,
+    so SWIPDG's "stencil_cg" runs on the plane SpMV kernel.  The reference
+    package registers no such provider: its cube provider always makes the
+    red-refined rectangle split."""
+    return alu_cube_grid(_pair(lower_left, float), _pair(upper_right, float),
+                         _pair(num_elements, int), refinements=int(num_refinements))
+
+
+GridProviders.register("stuff.grid.provider.alu_conforming", _alu_conforming_provider)
+GridProviders.register("alu_conforming", _alu_conforming_provider)

@@ -44,7 +44,14 @@ def _t(array, device, dtype) -> torch.Tensor:
 def cell_quadrature(grid: Grid, order: int, device, dtype=torch.float64
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Physical quadrature: points [NC, k, dim], weights [NC, k] (incl.
-    |J|), cached per (grid, order, device, dtype)."""
+    |J|), cached per (grid, order, device, dtype); on a TensorGrid the
+    weights are [k] (``ops.tensor_space.tensor_cell_quadrature``)."""
+    from ..grid.tensor import TensorGrid
+
+    if isinstance(grid, TensorGrid):  # d-generic Q1 path: weights [k]
+        from .tensor_space import tensor_cell_quadrature
+
+        return tensor_cell_quadrature(grid, order, device, dtype)
     key = ("_cell_quadrature", int(order), str(device), dtype)
     cached = grid.__dict__.get(key)
     if cached is not None:

@@ -37,7 +37,12 @@ def error_norms(space: Space, u: torch.Tensor, exact: Function,
                 diffusion_tensor: Optional[Function] = None,
                 order: int = 8) -> Dict[str, float]:
     """L2 / H1_semi (/ energy if a diffusion is given) norms of (exact - u_h),
-    by high-order quadrature over the cells of ``space``."""
+    by high-order quadrature over the cells of ``space`` (over cell chunks
+    on a TensorSpace, ``ops.tensor_space.tensor_error_norms``)."""
+    from .tensor_space import TensorSpace, tensor_error_norms
+
+    if isinstance(space, TensorSpace):
+        return tensor_error_norms(space, u, exact, diffusion_factor, diffusion_tensor, order)
     qp, qw = cell_quadrature(space.grid, order, space.device, space.dtype)
     e_val = exact(qp) - evaluate_discrete(space, u, qp)
     e_grad = exact.gradient(qp) - evaluate_discrete_gradient(space, u, qp)

@@ -3,13 +3,16 @@
 Counterpart of ``dune_hdd_tpu/problems/interfaces.py``: five data entries —
 scalar ``diffusion_factor``, matrix ``diffusion_tensor``, ``force``,
 ``dirichlet``, ``neumann`` — each a ParametricFunction (AffineDecomposition
-of Functions); ``with_mu`` freezes to a nonparametric problem.  (The VTK
-``visualize`` waits for ``utils/vtk.py``, ROADMAP queue 1 slice 6.)
+of Functions); ``with_mu`` freezes to a nonparametric problem;
+``visualize`` writes every data entry (and each affine component) as cell
+data.
 """
 from __future__ import annotations
 
 import io
 from typing import Dict
+
+import torch
 
 from ..affine import AffineDecomposition
 from ..functions.base import FrozenAffineFunction, ParametricFunction, nonparametric
@@ -63,6 +66,40 @@ class Problem:
         from .default import DefaultProblem
 
         return DefaultProblem(**{name: freeze(dec, name) for name, dec in self.entries().items()})
+
+    def visualize(self, grid, filename_prefix: str, mu=None, device="cuda") -> list:
+        """Write each data entry (and each affine component) as cell data on
+        the grid, sampled at the cell centroids on ``device`` (the card
+        unless the caller asks for the CPU); returns the written paths.
+        Matrix-valued entries store their diagonal (interfaces.hh:94-115,
+        146-165)."""
+        from ..device import resolve_device
+        from ..utils.vtk import write_cell_data_vtu
+
+        centroids = torch.as_tensor(grid.cell_centroids, dtype=torch.float64).to(
+            resolve_device(device))
+        paths = []
+        for name, dec in self.entries().items():
+            fields = {}
+
+            def sample(fn, tag):
+                vals = fn(centroids)
+                if vals.ndim == 1:
+                    fields[tag] = vals
+                elif vals.ndim == 3:  # matrix-valued: store the diagonal
+                    fields[tag + "_00"] = vals[:, 0, 0]
+                    fields[tag + "_11"] = vals[:, 1, 1]
+                else:
+                    fields[tag] = vals.reshape(len(vals), -1)[:, 0]
+
+            if dec.affine_part is not None:
+                sample(dec.affine_part, f"{name}_affine_part")
+            for q in range(dec.num_components):
+                sample(dec.components[q], f"{name}_component_{q}")
+            if dec.parametric() and mu is not None:
+                sample(FrozenAffineFunction(dec, self.parse_parameter(mu)), name)
+            paths.append(write_cell_data_vtu(grid, fields, f"{filename_prefix}_{name}"))
+        return paths
 
     def type(self) -> str:
         return self.static_id

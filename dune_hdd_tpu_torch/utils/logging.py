@@ -1,35 +1,65 @@
-"""Phase timing.
+"""Logging and phase timing (Stuff::Common::Logger / DSC::TimedLogger analog).
 
-Counterpart of ``timed``, ``timings`` and ``reset_timings`` in
-``dune_hdd_tpu/utils/logging.py``: a context manager that records each
-phase's seconds in a process-wide registry that reports read.  The
-reference's logger factory and its "<phase>... done" lines wait for the CLI
-(ROADMAP queue 1, slice 6).
+Counterpart of ``dune_hdd_tpu/utils/logging.py``: a logger factory with the
+reference's [logging] flags (info / debug / file, discreteproblem.hh:104-115),
+a ``timed`` context manager that records each phase's seconds in a
+process-wide registry that reports read (and, given a logger, writes the
+reference's "<phase>... done (took Xs)" lines), and a scoped logger with
+elapsed-time prefixes.
 """
 from __future__ import annotations
 
+import logging
+import sys
 import time
 from contextlib import contextmanager
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["timed", "timings", "reset_timings"]
+__all__ = ["create_logger", "timed", "timings", "reset_timings", "TimedLogger"]
 
 _TIMINGS: Dict[str, List[float]] = {}
 
 
+def create_logger(config: Optional[dict] = None, name: str = "dune_hdd_tpu_torch"
+                  ) -> logging.Logger:
+    """[logging] flags: info / debug / file (discreteproblem.hh:104-115)."""
+    cfg = dict(config or {})
+    logger = logging.getLogger(name)
+    logger.handlers.clear()
+    level = logging.WARNING
+    if cfg.get("debug"):
+        level = logging.DEBUG
+    elif cfg.get("info", True):
+        level = logging.INFO
+    logger.setLevel(level)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    logger.addHandler(handler)
+    if cfg.get("file"):
+        fh = logging.FileHandler(str(cfg.get("filename", name + ".log")))
+        fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        logger.addHandler(fh)
+    return logger
+
+
 @contextmanager
-def timed(phase: str, sync=None):
+def timed(phase: str, logger: Optional[logging.Logger] = None, sync=None):
     """Records the seconds of the phase.  ``sync``: a device to synchronize
     before the clock stops, so the time covers the phase's device work."""
+    if logger:
+        logger.info(f"{phase}...")
     t0 = time.perf_counter()
     try:
         yield
     finally:
         if sync is not None and torch.device(sync).type == "cuda":
             torch.cuda.synchronize(sync)
-        _TIMINGS.setdefault(phase, []).append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        _TIMINGS.setdefault(phase, []).append(dt)
+        if logger:
+            logger.info(f"{phase}... done (took {dt:.3f}s)")
 
 
 def timings() -> Dict[str, List[float]]:
@@ -38,3 +68,24 @@ def timings() -> Dict[str, List[float]]:
 
 def reset_timings():
     _TIMINGS.clear()
+
+
+class TimedLogger:
+    """DSC::TimedLogger-style scoped logger with elapsed-time prefixes."""
+
+    def __init__(self, name: str = "dune_hdd_tpu_torch", info: bool = True,
+                 debug: bool = False):
+        self._logger = create_logger({"info": info, "debug": debug}, name)
+        self._t0 = time.perf_counter()
+
+    def _prefix(self) -> str:
+        return f"[{time.perf_counter() - self._t0:8.3f}s] "
+
+    def info(self, msg: str):
+        self._logger.info(self._prefix() + msg)
+
+    def debug(self, msg: str):
+        self._logger.debug(self._prefix() + msg)
+
+    def warn(self, msg: str):
+        self._logger.warning(self._prefix() + msg)

@@ -4,6 +4,7 @@ thermalblock problems (frozen at seeded mu), at the same seeded points, to
 1e-13 relative (the same float64 formulas; the two libraries' sin/cos/exp
 may differ in the last ulp)."""
 import math
+import os
 
 import numpy as np
 import pytest
@@ -152,3 +153,100 @@ def test_problem_entries(problem):
             got = tb.freeze_function(dec)(torch.tensor(x))
             want = jb.freeze_function(jf.entries()[name])(jnp.asarray(x))
             _close(got, want)
+
+
+# -- ProblemsProvider, MixedBoundariesProblem, Problem.visualize ----------------
+
+def _provider_mus(problem):
+    if not problem.parametric():
+        return [None]
+    rng = np.random.default_rng(8)
+    size = sum(n for _, n in problem.parameter_type.items())
+    return [rng.uniform(0.1, 1.0, size) for _ in range(2)]
+
+
+def _same_entries(pt_prob, jx_prob, x):
+    assert repr(pt_prob.parameter_type) == repr(jx_prob.parameter_type)
+    assert pt_prob.report() == jx_prob.report()
+    for mu in _provider_mus(pt_prob):
+        pf = pt_prob.with_mu(mu) if mu is not None else pt_prob
+        jf = jx_prob.with_mu(mu) if mu is not None else jx_prob
+        for name, dec in pf.entries().items():
+            _close(tb.freeze_function(dec)(torch.tensor(x)),
+                   jb.freeze_function(jf.entries()[name])(jnp.asarray(x)))
+
+
+def test_problems_provider_registry():
+    assert tp.ProblemsProvider.available() == jp.ProblemsProvider.available()
+    for name in jp.ProblemsProvider.available():
+        assert tp.ProblemsProvider.default_config(name) == jp.ProblemsProvider.default_config(name)
+    assert type(tp.ProblemsProvider.create("ESV2007")).__name__ == "ESV2007Problem"
+    with pytest.raises(ValueError, match="unknown problem type"):
+        tp.ProblemsProvider.create("nope")
+
+
+@pytest.mark.parametrize("name", sorted(set(jp.ProblemsProvider.available())))
+def test_problems_provider_create(name):
+    """Each registered problem from its default config equals the
+    reference's at sample points (frozen at seeded mu when parametric)."""
+    cfg = jp.ProblemsProvider.default_config(name)
+    pt_prob = tp.ProblemsProvider.create(name, cfg)
+    jx_prob = jp.ProblemsProvider.create(name, cfg)
+    assert type(pt_prob).__name__ == type(jx_prob).__name__
+    assert pt_prob.type() == jx_prob.type()
+    _same_entries(pt_prob, jx_prob, _points(shape=(5, 4), lo=0.0, hi=1.0, seed=6))
+
+
+def test_mixed_boundaries_problem():
+    pt_prob, jx_prob = tp.MixedBoundariesProblem(), jp.MixedBoundariesProblem()
+    assert pt_prob.static_id == jx_prob.static_id == "hdd.linearelliptic.problem.mixedboundaries"
+    assert tp.MixedBoundariesProblem.create({}).default_config() == {}
+    _same_entries(pt_prob, jx_prob, _points(shape=(6, 3), lo=-1.0, hi=1.0, seed=7))
+
+
+def _vtu_arrays(path):
+    import re
+
+    text = open(path).read()
+    return {name: np.array(vals.split(), dtype=float) for name, vals in re.findall(
+        r'<DataArray type="Float64" Name="([^"]+)" format="ascii">\n([^<]*)\n</DataArray>',
+        text)}
+
+
+@pytest.mark.parametrize("problem", ["esv2007", "thermalblock", "mixed"])
+def test_problem_visualize(problem, tmp_path):
+    """Every data entry and affine component as cell data, the values equal
+    to the reference's (1e-13), the same files and fields."""
+    from dune_hdd_tpu.grid import structured as jg
+    from dune_hdd_tpu_torch.grid import structured as tg
+
+    pt_prob, jx_prob, mu = {
+        "esv2007": (tp.ESV2007Problem(), jp.ESV2007Problem(), None),
+        "thermalblock": (tp.ThermalblockProblem((2, 2)), jp.ThermalblockProblem((2, 2)),
+                         {"diffusion_factor": np.array([0.1, 0.2, 0.5, 1.0])}),
+        "mixed": (tp.MixedBoundariesProblem(), jp.MixedBoundariesProblem(), None),
+    }[problem]
+    t_grid = tg.rectangle_grid((0, 0), (1, 1), (4, 3))
+    j_grid = jg.rectangle_grid((0, 0), (1, 1), (4, 3))
+    t_paths = pt_prob.visualize(t_grid, str(tmp_path / "port" / problem), mu=mu, device="cpu")
+    j_paths = jx_prob.visualize(j_grid, str(tmp_path / "reference" / problem), mu=mu)
+    assert [os.path.basename(p) for p in t_paths] == [os.path.basename(p) for p in j_paths]
+    for a, b in zip(t_paths, j_paths):
+        fa, fb = _vtu_arrays(a), _vtu_arrays(b)
+        assert list(fa) == list(fb)
+        for name in fa:
+            _close(fa[name], fb[name])
+
+
+def test_problem_visualize_tensor_grid_raises_like_reference(tmp_path):
+    """The reference's writer has no hexahedra: both raise the same error."""
+    from dune_hdd_tpu.grid.tensor import tensor_grid as jtensor_grid
+    from dune_hdd_tpu_torch.grid.tensor import tensor_grid
+
+    with pytest.raises(AttributeError) as port_err:
+        tp.ESV2007Problem().visualize(tensor_grid((0.0,) * 3, (1.0,) * 3, (2, 2, 2)),
+                                      str(tmp_path / "p"), device="cpu")
+    with pytest.raises(AttributeError) as ref_err:
+        jp.ESV2007Problem().visualize(jtensor_grid((0.0,) * 3, (1.0,) * 3, (2, 2, 2)),
+                                      str(tmp_path / "j"))
+    assert str(port_err.value) == str(ref_err.value)

@@ -48,6 +48,12 @@ def test_port_imports_no_jax():
         "from dune_hdd_tpu_torch.grid.structured import interval_grid\n"
         "from dune_hdd_tpu_torch.la.solvers import gmres\n"
         "from dune_hdd_tpu_torch.estimators.swipdg import rt1_flux_reconstruction\n"
+        "import dune_hdd_tpu_torch.utils.config, dune_hdd_tpu_torch.utils.profiling\n"
+        "import dune_hdd_tpu_torch.problems.provider, dune_hdd_tpu_torch.problems.mixed_boundaries\n"
+        "import dune_hdd_tpu_torch.grid.tensor, dune_hdd_tpu_torch.ops.tensor_space\n"
+        "import dune_hdd_tpu_torch.discretizations.tensor_cg, dune_hdd_tpu_torch.testcases.tensor\n"
+        "import dune_hdd_tpu_torch.cli, dune_hdd_tpu_torch.cli.examples, dune_hdd_tpu_torch.cli.main\n"
+        "from dune_hdd_tpu_torch.utils.logging import TimedLogger, create_logger\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
