@@ -5,6 +5,10 @@ SWIPDG assemble-and-solve bench at 768k, 3.07M and 12.29M DoF (6, 8 and 10
 bisections) through the plane SpMV kernel, drives the structured SpMV and
 the probe through their own entry points, times every kernel beside its
 plain version and one library call that computes the same function, then
+runs the bench's other branches at 768k DoF (two-level deflation on the
+structured SpMV, the stencil branch, geometric multigrid in float64, the
+Chebyshev smoother and the plane multigrid) and the (200, 40) coarse space
+at 3.07M DoF through the factored BCR, then
 runs the ESV2007 EOC study with its a-posteriori estimators (levels 0-6, up
 to 1.57M DoF), the CG-P1 EOC study on the same hierarchy, the BlockSWIPDG /
 OS2014 path (the published block table at four partitionings, [8 8 1] to
@@ -31,10 +35,19 @@ tile, ring and dynamic shared memory per instantiation), kernel vs plain
 (plane SpMV at 6 and 2 bisections, and bitwise at every nd and dtype on
 random planes with nonzero wrapped blocks; structured SpMV on the
 768k-DoF operator and on random blocks; probe bitwise at three sizes and on
-offset views, both of its paths), main path at 6 bisections, structured
-path, probe path, kernel path vs plain path at 4 bisections, kernel timing
-at 768k DoF (the probe at [64, 128] and 2^24, and its scalar path), main
-path at 8 bisections with the symmetric operator's checks, main path at 10
+offset views, both of its paths), main path at 6 bisections, the other
+branches from one block-ELL assembly of the bench field (deflation three
+times, the median, its structured SpMV launches counted; stencil against
+the stencil2 solution; mg with its levels, damping and V-cycle seconds;
+stencil2 with cheb2 and with pc2=mg; each preconditioner apply first held
+against its twin on the plain SpMVs; every solve to a true 1e-6 rechecked
+in float64, mg's block CG to 1e-5), structured path (a power iteration),
+probe path, kernel path vs plain path at 4 bisections, kernel timing at
+768k DoF (the probe at [64, 128] and 2^24, and its scalar path), main
+path at 8 bisections with the symmetric operator's checks, the same size
+with macro (200, 40) (the factored BCR from the coarse bands, to a true
+1e-6; then the factored solve of its dense E against torch.linalg.solve in
+float64), main path at 10
 bisections with the plane SpMV checked against its plain version and timed
 on the symmetric 12.29M-DoF planes, the ESV2007 study (stencil_cg with the
 4x4 macro and the six ESV2007 estimators: the table of errors, estimates
@@ -73,7 +86,8 @@ with the Riesz-estimator greedy, its certification and the batched online
 sweep; the 2D TensorCG batched-online cases.  Then the plane SpMV's launches per
 instantiation and lattice with each one's share, a JSON line of the kernels
 (one row per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, one
-for its (256, 256) f64 lattice, and one per structured_spmv nd), the card's
+for its (256, 256) f64 lattice, and one per structured_spmv nd; the nd-3
+row's launches are the deflation branch's), the card's
 name and power limit, and last {"ok": true, ...}.
 
     python3 chip_smoke.py --plane-rows [--library]
@@ -81,6 +95,12 @@ name and power limit, and last {"ok": true, ...}.
 builds the plane SpMV only and times it at the driven paths' lattices on
 random planes, against its bound (with --library also its plain version and
 the BSR call).
+
+    python3 chip_smoke.py --alt-solvers
+
+builds the two SpMVs and runs the main path at 768k DoF, the other branches
+there, the main path at 3.07M DoF and the (200, 40) coarse space there
+(about a minute).
 """
 import copy
 import json
@@ -359,7 +379,6 @@ def phase_main_path(dev, bisections, repeats):
     set to 0 just before and read just after.  Returns the run's dict and
     the launch count."""
     from dune_hdd_tpu_torch.bench_harness import run_spe10_bench
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference
 
     start_path()
     r = run_spe10_bench(bisections=bisections, repeats=repeats, tol=1e-6, device=dev)
@@ -370,11 +389,7 @@ def phase_main_path(dev, bisections, repeats):
     S, B, s = bench.assemble(r["field"])
     if bench.settings.symmetric:
         S = S.symmetrized()
-    W64 = S.matvec_planes.double()
-    B64 = B.double()
-    X = r["u"][bench.to_soa].reshape(B.shape) / s.double()
-    res64 = ((B64 - plane_spmv_reference(W64, X, S.plan)).norm() / B64.norm()).item()
-    del W64
+    res64 = plane_residual64(S, B, s, r["u"], bench.to_soa)
     if not res64 <= 1.01e-6:
         raise AssertionError(f"float64 recheck: residual {res64:.3e} > 1.01e-6")
     per_solve = r["inner_iterations"] + r["outer_sweeps"]
@@ -449,6 +464,251 @@ def phase_kernel_path_vs_plain_path(dev):
     log("kernel_path_vs_plain_path", bisections=4, rel_max_diff=f"{diff:.3e}",
         residuals=repr([f"{x.residual:.3e}" for x in sols]),
         iterations=repr([x.iterations for x in sols]))
+
+
+def block_residual64(A, b, s, u):
+    """True relative residual of the scaled block-ELL system (A, b) for the
+    unscaled solution u, in float64 with the plain gather SpMV."""
+    from dune_hdd_tpu_torch.la.block_ell import BlockEllMatrix
+
+    b64 = b.double()
+    r = b64 - BlockEllMatrix(A.neighbors, A.blocks.double()).matvec(u / s.double())
+    return (r.norm() / b64.norm()).item()
+
+
+def plane_residual64(S, B, s, u, to_soa):
+    """The same for the plane system (S, B): float64, plain plane SpMV."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference
+
+    B64 = B.double()
+    X = u[to_soa].reshape(B.shape) / s.double()
+    return ((B64 - plane_spmv_reference(S.matvec_planes.double(), X, S.plan)).norm()
+            / B64.norm()).item()
+
+
+def twin_check(what, M, M_plain, r, rel):
+    """One preconditioner apply with the kernels against its twin on their
+    plain versions, on the same input: bitwise, or within ``rel`` x max."""
+    y, y_plain = M(r), M_plain(r)
+    bitwise = torch.equal(y, y_plain)
+    err = 0.0 if bitwise else rel_check(f"{what} vs its plain-SpMV twin", y, y_plain, rel)
+    return bitwise, err, err / y_plain.abs().max().item()
+
+
+def timed_bench_solve(bench, system):
+    """bench.solve(*system) between two synchronizations: (solution, s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = bench.solve(*system)
+    torch.cuda.synchronize()
+    return sol, time.perf_counter() - t0
+
+
+ALT_BISECTIONS = 6  # 768,000 DoF, the bench's own size
+
+
+def phase_alt_solvers(dev, u_stencil2, bisections=ALT_BISECTIONS):
+    """The bench's other branches at 768k DoF from one block-ELL assembly of
+    the bench field: ``deflation`` (three solves, the median; every fine
+    matvec the structured SpMV, its launches counted from 0 over the path),
+    ``stencil`` (against the stencil2 solution ``u_stencil2``), ``mg`` (its
+    float64 assembly, block CG to 1e-5 with the V-cycle) and ``stencil2``
+    with the Chebyshev smoother and with the plane multigrid.  Before each
+    solve, one preconditioner apply against its twin on the plain SpMVs.
+    Gates: true relative residual <= 1e-6, rechecked in float64 with the
+    plain SpMV, <= 1.01e-6; mg's CG residual <= 1e-5 within 300 iterations.
+    Returns the structured SpMV's launches on the deflation path."""
+    from dune_hdd_tpu_torch.bench_harness import build_spe10_bench
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference
+    from dune_hdd_tpu_torch.kernels.structured_spmv import (
+        structured_spmv, structured_spmv_reference)
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll
+
+    def build(preconditioner, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bench = build_spe10_bench(bisections, device=dev, preconditioner=preconditioner, **kw)
+        return bench, time.perf_counter() - t0
+
+    def assemble(bench):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system = bench.assemble(bench.field)
+        torch.cuda.synchronize()
+        return system, time.perf_counter() - t0
+
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    bench, setup_s = build("deflation")
+    (A, b, s), asm_s = assemble(bench)
+    log("alt_assembly", bisections=bisections, dofs=bench.num_dofs, dtype=A.blocks.dtype,
+        setup_seconds=f"{setup_s:.3f}", assembly_seconds=f"{asm_s:.3f}", card=repr(card()))
+
+    # (a) deflation on the structured SpMV
+    twin = build_spe10_bench(bisections, device=dev, preconditioner="deflation",
+                             structured=structured_spmv_reference)
+    A_st, M = bench.precondition(A, s)
+    r = torch.randn(A.blocks.shape[0] * 3, generator=gen).to(dev)
+    bitwise, err, rel = twin_check("structured deflation", M, twin.precondition(A, s)[1], r, 1e-5)
+    del A_st, M, twin
+    structured_spmv.launches = 0
+    runs = [timed_bench_solve(bench, (A, b, s)) for _ in range(3)]
+    launches = structured_spmv.launches
+    sol = runs[-1][0]
+    res64 = block_residual64(A, b, s, sol.u)
+    if not (sol.residual <= 1e-6 and res64 <= 1.01e-6):
+        raise AssertionError(f"deflation: residual {sol.residual:.3e}, float64 {res64:.3e}")
+    per_solve = launches // 3
+    if not per_solve >= 3 * sol.iterations:
+        raise AssertionError(f"deflation: {launches} structured_spmv launches in 3 solves "
+                             f"of {sol.iterations} iterations")
+    log("alt_deflation", dofs=bench.num_dofs,
+        seconds=f"{statistics.median(t for _, t in runs):.4f}", all_seconds=repr([round(t, 4) for _, t in runs]), iterations=sol.iterations,
+        sweeps=sol.sweeps, residual=f"{sol.residual:.3e}", residual_f64_recheck=f"{res64:.3e}",
+        structured_spmv_launches=launches, twin_bitwise=bitwise, twin_max_abs_diff=f"{err:.3e}",
+        twin_rel=f"{rel:.3e}", card=repr(card()))
+
+    # (b) stencil: the same assembly, permuted into planes
+    bench, _ = build("stencil")
+    twin = build_spe10_bench(bisections, device=dev, preconditioner="stencil",
+                             spmv=plane_spmv_reference)
+    S, M = bench.precondition(A, s)
+    R = torch.randn((3, 8) + tuple(S.lattice), generator=gen).to(dev)
+    bitwise, err, rel = twin_check("stencil deflation", M, twin.precondition(A, s)[1], R, 1e-5)
+    del S, M, twin
+    start_path()
+    sol, seconds = timed_bench_solve(bench, (A, b, s))
+    n = end_path()
+    res64 = block_residual64(A, b, s, sol.u)
+    diff = ((sol.u - u_stencil2).norm() / u_stencil2.norm()).item()
+    if not (sol.residual <= 1e-6 and res64 <= 1.01e-6 and n > 0):
+        raise AssertionError(f"stencil: residual {sol.residual:.3e}, float64 {res64:.3e}, "
+                             f"{n} plane_spmv launches")
+    log("alt_stencil", dofs=bench.num_dofs, seconds=f"{seconds:.4f}", iterations=sol.iterations,
+        sweeps=sol.sweeps, residual=f"{sol.residual:.3e}", residual_f64_recheck=f"{res64:.3e}",
+        rel_diff_vs_stencil2=f"{diff:.3e}", plane_spmv_launches=n, twin_bitwise=bitwise,
+        twin_max_abs_diff=f"{err:.3e}", twin_rel=f"{rel:.3e}", card=repr(card()))
+    del A, b, s
+
+    # (c) mg: float64 assembly, block CG with the geometric V-cycle
+    bench, _ = build("mg", tol=1e-5)
+    (A, b, s), asm_s = assemble(bench)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, M = bench.precondition(A, s)
+    torch.cuda.synchronize()
+    hierarchy_s = time.perf_counter() - t0
+    h = M.__self__
+    vcycle = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M(b)
+        torch.cuda.synchronize()
+        vcycle.append(time.perf_counter() - t0)
+    del M
+    sol, seconds = timed_bench_solve(bench, (A, b, s))
+    res64 = block_residual64(A, b, s, sol.u)
+    if not (sol.residual <= 1e-5 and sol.iterations < 300):
+        raise AssertionError(f"mg: CG residual {sol.residual:.3e} after {sol.iterations}")
+    log("alt_mg", dofs=bench.num_dofs, dtype=A.blocks.dtype, assembly_seconds=f"{asm_s:.3f}",
+        hierarchy_seconds=f"{hierarchy_s:.3f}", levels=len(h.grids),
+        omegas=repr([round(float(w), 6) for w in h.omegas]),
+        vcycle_seconds=f"{statistics.median(vcycle):.5f}", seconds=f"{seconds:.4f}",
+        iterations=sol.iterations, residual=f"{sol.residual:.3e}",
+        residual_f64_true=f"{res64:.3e}", card=repr(card()))
+    del A, b, s, h
+
+    # (d) stencil2 with the Chebyshev smoother, and with the plane multigrid
+    for options in ({"smoother": "cheb2"}, {"pc2": "mg"}):
+        bench, _ = build("stencil2", **options)
+        S, B, s = bench.assemble(bench.field)
+        _, M = bench.precondition(S, s)
+        _, M_plain = bench.precondition(StencilBlockEll(S.planes, S.plan, plane_spmv_reference), s)
+        R = torch.randn(tuple(B.shape), generator=gen).to(dev)
+        bitwise, err, rel = twin_check(f"stencil2 {options}", M, M_plain, R, 1e-5)
+        del M, M_plain
+        start_path()
+        sol, seconds = timed_bench_solve(bench, (S, B, s))
+        n = end_path()
+        res64 = plane_residual64(S, B, s, sol.u, bench.to_soa)
+        if not (sol.residual <= 1e-6 and res64 <= 1.01e-6 and n > 0):
+            raise AssertionError(f"stencil2 {options}: residual {sol.residual:.3e}, float64 "
+                                 f"{res64:.3e}, {n} plane_spmv launches")
+        log("alt_stencil2", **options, dofs=bench.num_dofs, seconds=f"{seconds:.4f}",
+            iterations=sol.iterations, sweeps=sol.sweeps, residual=f"{sol.residual:.3e}",
+            residual_f64_recheck=f"{res64:.3e}", plane_spmv_launches=n, twin_bitwise=bitwise,
+            twin_max_abs_diff=f"{err:.3e}", twin_rel=f"{rel:.3e}", card=repr(card()))
+        del S, B, s
+    torch.cuda.empty_cache()
+    return launches
+
+
+FACTORED_MACRO = (200, 40)  # 8,000 aggregates
+
+
+def phase_factored_bcr(dev, r_default, bisections=8):
+    """build_spe10_bench(8, macro=(200, 40)): the two-level preconditioner's
+    exact level has 8,000 aggregates, so its coarse solve is the factored
+    BCR from the coarse bands (never dense).  Gate: true 1e-6, rechecked in
+    float64.  Then the dense route of the multilevel inverse's last level,
+    ``_coarse_inverse_bcr_factored`` on the (200, 40) dense E of this
+    system (float32, 256 MB), against ``torch.linalg.solve`` in float64."""
+    from dune_hdd_tpu_torch.bench_harness import build_spe10_bench
+    from dune_hdd_tpu_torch.la import stencil as st
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bench = build_spe10_bench(bisections, device=dev, macro=FACTORED_MACRO)
+    setup_s = time.perf_counter() - t0
+    if bench.mid_shape is not None:
+        raise AssertionError(f"macro {FACTORED_MACRO}: a middle level {bench.mid_shape}")
+    S, B, s = bench.assemble(bench.field)
+    start_path()
+    sol, seconds = timed_bench_solve(bench, (S, B, s))
+    n = end_path()
+    S_sym = S.symmetrized() if bench.settings.symmetric else S
+    res64 = plane_residual64(S_sym, B, s, sol.u, bench.to_soa)
+    if not (sol.residual <= 1e-6 and res64 <= 1.01e-6 and n > 0):
+        raise AssertionError(f"factored BCR bench: residual {sol.residual:.3e}, float64 "
+                             f"{res64:.3e}, {n} plane_spmv launches")
+    log("factored_bcr_bench", bisections=bisections, dofs=bench.num_dofs,
+        macro=repr(FACTORED_MACRO), setup_seconds=f"{setup_s:.3f}", seconds=f"{seconds:.4f}",
+        iterations=sol.iterations, sweeps=sol.sweeps, residual=f"{sol.residual:.3e}",
+        residual_f64_recheck=f"{res64:.3e}", plane_spmv_launches=n,
+        default_macro_iterations=r_default["inner_iterations"],
+        default_macro_sweeps=r_default["outer_sweeps"],
+        default_macro_seconds=f"{r_default['seconds']:.4f}", card=repr(card()))
+    del sol
+    # the dense route: E of the weighted (200, 40) aggregation
+    w = 1.0 / s
+    wnbr = S.neighbor_fields(w)
+    Pw = torch.stack([(w[:, None] * S.planes[k] * wnbr[k][None, :]).sum(dim=(0, 1))
+                      for k in range(4)])
+    agg = st._aggregation(S, FACTORED_MACRO)
+    E = st._coarse_E_banded(S, agg, Pw)
+    del S, B, s, S_sym, wnbr, Pw
+    mx, my = FACTORED_MACRO
+    rc = torch.randn(mx * my, generator=torch.Generator(device="cpu").manual_seed(22)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve = st._coarse_inverse_bcr_factored(E, mx, my, residual_dtype=torch.float64)
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    x = solve(rc)
+    E64, rc64 = E.double(), rc.double()
+    del E
+    x_ref = torch.linalg.solve(E64, rc64)
+    res = ((rc64 - E64 @ x.double()).norm() / rc64.norm()).item()
+    res_ref = ((rc64 - E64 @ x_ref).norm() / rc64.norm()).item()
+    diff = ((x.double() - x_ref).norm() / x_ref.norm()).item()
+    if not (math.isfinite(res) and res <= 1e-2 and res_ref <= 1e-8):
+        raise AssertionError(f"factored BCR on the dense E: residual {res:.3e}, "
+                             f"linalg.solve {res_ref:.3e}")
+    log("factored_bcr_dense", n_agg=mx * my, factor_seconds=f"{factor_s:.3f}",
+        rel_residual_f64=f"{res:.3e}", linalg_solve_rel_residual=f"{res_ref:.3e}",
+        rel_diff_vs_linalg_solve=f"{diff:.3e}", card=repr(card()))
+    del E64, x_ref
+    torch.cuda.empty_cache()
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
@@ -2333,6 +2593,8 @@ def time_general_spmvs(d, mu, like):
 
 
 def main():
+    from dune_hdd_tpu_torch.bench_harness import _bench_geometry
+
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -2342,8 +2604,10 @@ def main():
     probe_err = phase_probe_vs_plain(dev)
 
     launches = {}
-    phase_main_path(dev, 6, repeats=3)
-    launches["structured_spmv"] = phase_structured_path(A6, S6, B6)
+    r6, _, _ = phase_main_path(dev, 6, repeats=3)
+    launches["structured_spmv"] = phase_alt_solvers(dev, r6["u"])
+    del r6
+    phase_structured_path(A6, S6, B6)
     launches["probe"] = phase_probe_path(dev)
     phase_kernel_path_vs_plain_path(dev)
     structured_ms, probe_ms, err = phase_timing_768k(dev, S6, B6, A6, b6)
@@ -2352,7 +2616,9 @@ def main():
 
     r, (S8, _), _ = phase_main_path(dev, 8, repeats=3)
     plane_err = max(plane_err, phase_symmetric_checks(S8))
-    del r, S8
+    del S8
+    phase_factored_bcr(dev, r)
+    del r
     torch.cuda.empty_cache()
 
     r, (S10, B10), _ = phase_main_path(dev, 10, repeats=3)
@@ -2360,6 +2626,7 @@ def main():
     plane_times, err = time_plane_spmv(S10, B10, "12.29M symmetric", W=S10.sym_planes)
     plane_err = max(plane_err, err)
     del S10, B10
+    _bench_geometry.cache_clear()  # the 12.29M set-up: no later path uses it
     torch.cuda.empty_cache()
 
     _, err, tc = phase_esv2007_study(dev)
@@ -2437,5 +2704,25 @@ def main_plane_rows():
     print(card())
 
 
+def main_alt_solvers():
+    """``--alt-solvers``: build the plane and structured SpMVs and run the
+    alternate solvers' phases with the main paths they follow (768k, then
+    3.07M DoF, one timed call each)."""
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(("plane_spmv", "structured_spmv"))
+    r6, _, _ = phase_main_path(dev, 6, repeats=1)
+    phase_alt_solvers(dev, r6["u"])
+    del r6
+    r8, _, _ = phase_main_path(dev, 8, repeats=1)
+    phase_factored_bcr(dev, r8)
+    print(card())
+
+
 if __name__ == "__main__":
-    main_plane_rows() if "--plane-rows" in sys.argv else main()
+    if "--plane-rows" in sys.argv:
+        main_plane_rows()
+    elif "--alt-solvers" in sys.argv:
+        main_alt_solvers()
+    else:
+        main()

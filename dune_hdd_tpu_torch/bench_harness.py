@@ -1,24 +1,34 @@
-"""Benchmark harness: SPE10 SWIPDG assemble + solve to a true 1e-6 residual.
+"""Benchmark harness: SPE10 SWIPDG assemble + solve.
 
-Counterpart of the ``preconditioner="stencil2"`` path of
-``dune_hdd_tpu/bench_harness.py``.  The SPE10 model-1 problem (100 x 20
-permeability cells on [0,5] x [0,1], channel-modulated diffusion factor,
-three box forces, all-Dirichlet boundary) is discretized with P1 SWIPDG on
-the ALU-bisected 100 x 20 cube grid.  Per call, from the permeability field
-as a device tensor:
+Counterpart of ``dune_hdd_tpu/bench_harness.py``.  The SPE10 model-1
+problem (100 x 20 permeability cells on [0,5] x [0,1], channel-modulated
+diffusion factor, three box forces, all-Dirichlet boundary) is discretized
+with P1 SWIPDG on the ALU-bisected 100 x 20 cube grid.  Per call, from the
+permeability field as a device tensor, ``preconditioner`` chooses the
+branch:
 
-1. assemble the operator directly into stencil planes and the rhs;
-2. scale it symmetrically by its diagonal;
-3. build the weighted deflation preconditioner: two-level onto the macro
-   lattice (the 100 x 20 permeability grid, dense BCR / LU coarse inverse)
-   up to 6 bisections, three-level (a middle lattice of 4 x the macro's
-   with a Chebyshev-accelerated two-level inverse) from 8 bisections on;
-4. solve with float32 PCG inside float64 iterative refinement, applying the
-   exactly symmetrized operator from 8 bisections on.
+* "stencil2" (default): assemble the operator directly into stencil planes
+  and the rhs, scale it symmetrically by its diagonal, build the weighted
+  deflation preconditioner (two-level onto the macro lattice up to 6
+  bisections, three-level with a Chebyshev-accelerated middle level from 8
+  on) or, with ``pc2="mg"``, the plane-layout aggregation V-cycle, and
+  solve with float32 PCG inside float64 iterative refinement, applying the
+  exactly symmetrized operator from 8 bisections on; ``smoother="cheb<k>"``
+  smooths with a degree-k Chebyshev polynomial instead of block Jacobi;
+* "stencil": the general block-ELL assembly in float32, permuted into
+  planes, then the same deflation preconditioner and refined solve;
+* "deflation": the general float32 block-ELL assembly in the structured
+  numbering, two-level deflation on the structured SpMV inside float64
+  refinement (``la/deflation.py``);
+* "mg": the general block-ELL assembly in float64 and block CG with the
+  geometric V-cycle over the bisection hierarchy (``la/multigrid.py``).
 
-The host geometry plan, the static coefficient and the kernel build are
-set-up, outside the timed call.  The solver settings are the reference's
-size-dependent defaults (``_solver_settings``).
+The first three reach a true relative residual ``tol``; "mg" stops on its
+CG recurrence residual.  The host set-up is outside the timed call.  The
+solver settings are the reference's size-dependent defaults
+(``_solver_settings``); where the reference logs a warning and falls back
+to another route (a macro lattice that does not tile the fine one), the
+port raises ValueError.
 
 ``block_provenance_check`` holds the bench's operator and rhs against the
 BlockSWIPDG [20 4 1] global system assembled from its local and coupling
@@ -28,6 +38,7 @@ from __future__ import annotations
 
 import statistics
 import time
+from functools import lru_cache
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -47,11 +58,23 @@ from .grid.boundaryinfo import make_boundary_info
 from .grid.structured import alu_cube_grid
 from .grid.structured_order import structured_cell_order
 from .kernels.plane_spmv import plane_spmv
+from .kernels.structured_spmv import structured_spmv
+from .la.block_ell import (
+    StructuredBlockEll,
+    block_cg,
+    build_block_ell,
+    symmetric_diagonal_scaling,
+)
+from .la.deflation import refined_deflated_solve, structured_deflation_preconditioner
+from .la.multigrid import MultigridHierarchy, mg_preconditioner
 from .la.stencil import (
     StencilBlockEll,
+    chebyshev_smoother,
+    soa_index_maps,
     stencil_deflation_preconditioner,
     stencil_refined_solve,
 )
+from .la.stencil_multigrid import stencil_multigrid_preconditioner
 from .la.stencil_assembly import (
     assemble_structured_spe10,
     assembly_tensors,
@@ -61,6 +84,9 @@ from .la.stencil_assembly import (
     scale_planes,
     structured_rhs,
 )
+from .ops.assembly import elliptic_cell_matrices, force_cell_vectors
+from .ops.spaces import dg_space
+from .ops.swipdg import swipdg_face_blocks
 from .problems.default import DefaultProblem
 from .testcases._spe10_channel import CHANNEL
 from .utils.logging import timed
@@ -74,6 +100,13 @@ _FORCES = [
     ((4.25, 0.25), (4.40, 0.40), -1000.0),
 ]
 _MACRO = (MODEL1_NX, MODEL1_NZ)  # deflation aggregates = permeability cells
+PRECONDITIONERS = ("stencil2", "stencil", "deflation", "mg")
+# refinement sweeps of the "deflation" branch.  The reference's 6 are one
+# short at 768k DoF once the float32 operator rounds differently: its own
+# operator reaches 3.4e-7 in 6 sweeps, one 4.5e-7 apart (the port's, on the
+# CPU) 2.5e-6 in 6 and 1.3e-7 in 7.  The loop stops at the tolerance, so
+# the cap costs nothing where fewer sweeps suffice.
+DEFLATION_OUTER_MAX = 12
 
 
 class SolverSettings(NamedTuple):
@@ -126,22 +159,23 @@ def _select_mid_level(KY: int, KX: int, macro) -> Optional[object]:
 
 class BenchSolution(NamedTuple):
     u: torch.Tensor      # float64 solution, flat cell-major original order
-    residual: float      # true relative residual of the scaled system
-    iterations: int      # total inner PCG iterations
-    sweeps: int          # outer refinement sweeps
+    residual: float      # true relative residual of the scaled system ("mg": CG's recurrence one)
+    iterations: int      # total inner PCG iterations ("mg": block CG iterations)
+    sweeps: int          # outer refinement sweeps ("mg": 1)
 
 
 class Spe10Bench(NamedTuple):
     fn: Callable         # permeability field -> BenchSolution (the timed call)
     field: torch.Tensor  # [MODEL1_NX, MODEL1_NZ] float32 example field
     num_dofs: int
-    assemble: Callable   # field -> (S, B, s): assembly + scaling part of fn
-    solve: Callable      # (S, B, s) -> BenchSolution: the rest of fn
-    precondition: Callable  # (S, s) -> (S, M): the operator solve applies, its M
-    to_soa: torch.Tensor  # flat original -> SoA [nd, 8, KY, KX] index map
+    assemble: Callable   # field -> (A, b, s): assembly + scaling part of fn
+    solve: Callable      # (A, b, s) -> BenchSolution: the rest of fn
+    precondition: Callable  # (A, s) -> (the operator solve applies, its M)
+    to_soa: Optional[torch.Tensor]  # flat original -> SoA [nd, 8, KY, KX] map (stencil branches)
     settings: SolverSettings
-    mid_shape: object    # middle lattice(s) of the preconditioner, or None
+    mid_shape: object    # middle lattice(s) of the deflation preconditioner, or None
     offsets: tuple       # 8 x 3 flat cell offsets of the structured order
+    preconditioner: str  # the branch
 
 
 def _highest_precision() -> None:
@@ -154,6 +188,7 @@ def _highest_precision() -> None:
 
 class _BenchGeometry(NamedTuple):
     grid: object             # the ALU-bisected 100 x 20 grid
+    binfo: object            # its all-Dirichlet boundary info
     order: object            # its structured cell order (lattice (KY, KX))
     tensors: object          # AssemblyTensors on the device
     to_soa: torch.Tensor     # flat original -> SoA [nd, 8, KY, KX] index map
@@ -161,20 +196,26 @@ class _BenchGeometry(NamedTuple):
     broadcast: Callable      # [MODEL1_NX, MODEL1_NZ] field -> [8, KY, KX] cell field
 
 
+def _diffusion_factor():
+    channel = IndicatorFunction(CHANNEL, name="channel")
+    return SumFunction([ConstantFunction(1.0), ScaledFunction(channel, -0.9)],
+                       name="diffusion_factor")
+
+
+@lru_cache(maxsize=1)
 def _bench_geometry(bisections: int, device) -> _BenchGeometry:
     """The bench operator's host set-up on ``device``: grid, structured
     order, assembly plan with the static channel coefficient, SoA maps, and
     the broadcast of the permeability field onto the lattice, checked
-    against the centroid binning."""
+    against the centroid binning.  The last one is kept, so a bench built
+    again at the same size shares it."""
     grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
     binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
     order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
     KY, KX = order.lattice
-    channel = IndicatorFunction(CHANNEL)
-    diffusion_factor = SumFunction([ConstantFunction(1.0), ScaledFunction(channel, -0.9)])
     splan = build_structured_assembly(grid, order, binfo)
     # the channel geometry is static: evaluate it once on the host
-    tensors = assembly_tensors(splan, precompute_coefficient(splan, diffusion_factor), device)
+    tensors = assembly_tensors(splan, precompute_coefficient(splan, _diffusion_factor()), device)
     to_soa, from_soa = geometric_soa_maps(order, splan)
     # the macro grid tiles the lattice, so the cell-constant permeability in
     # SoA order is a pure broadcast cf[k, iy, ix] = field[ix // fx, iy // fy];
@@ -193,61 +234,181 @@ def _bench_geometry(bisections: int, device) -> _BenchGeometry:
         cf2d = field.t()[:, None, :, None].expand(MODEL1_NZ, fy, MODEL1_NX, fx)
         return cf2d.reshape(KY, KX)[None].expand(8, KY, KX)
 
-    return _BenchGeometry(grid, order, tensors,
+    return _BenchGeometry(grid, binfo, order, tensors,
                           torch.as_tensor(to_soa, dtype=torch.long, device=device),
                           torch.as_tensor(from_soa, dtype=torch.long, device=device), broadcast)
 
 
+def _block_assembly(geo: _BenchGeometry, device, dtype: torch.dtype) -> Callable:
+    """field -> (S A S, S b, S): the general SWIPDG assembly into block-ELL
+    layout in ``dtype``, symmetrically scaled by the diagonal."""
+    grid = geo.grid
+    space = dg_space(grid, device=device, dtype=dtype)
+    interior = np.nonzero(grid.interior_faces)[0]
+    dirichlet = np.nonzero(geo.binfo.dirichlet_faces)[0]
+    dfac, force = _diffusion_factor(), IndicatorFunction(_FORCES, name="force")
+
+    def assemble(field: torch.Tensor):
+        # the reference's _field_tensor_function: the cell lookup as an
+        # isotropic tensor, its values in the points' dtype
+        tensor = Spe10Model1Function.from_field(field, name="spe10_field")
+        vol = elliptic_cell_matrices(space, dfac, tensor)
+        ib, bb = swipdg_face_blocks(space, dfac, tensor, interior, dirichlet)
+        A = build_block_ell(space, vol, ib, bb, interior, dirichlet)
+        return symmetric_diagonal_scaling(A, force_cell_vectors(space, force).reshape(-1))
+
+    return assemble
+
+
+def _chebyshev_degree(smoother: str) -> int:
+    """0 for "jacobi", k for "cheb<k>" (2 for "cheb")."""
+    if smoother == "jacobi":
+        return 0
+    if smoother.startswith("cheb") and (smoother[4:].isdigit() or smoother == "cheb"):
+        return int(smoother[4:] or 2)
+    raise ValueError(f"smoother must be 'jacobi' or 'cheb<k>', got {smoother!r}")
+
+
 def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
-                      spmv: Callable = plane_spmv, macro=_MACRO) -> Spe10Bench:
+                      spmv: Callable = plane_spmv, macro=_MACRO,
+                      preconditioner: str = "stencil2", smoother: str = "jacobi",
+                      pc2: str = "deflation", maxiter: int = 300,
+                      structured: Callable = structured_spmv) -> Spe10Bench:
     """Set up the bench at ``bisections`` (even) on ``device`` (the card
-    unless the caller passes ``device="cpu"``; raises without one).  ``spmv`` is
-    the SpMV the operator applies (the CUDA kernel's plain version can be
-    substituted for comparison); ``macro`` is the exact coarse lattice of
-    the preconditioner (the permeability grid by default)."""
+    unless the caller passes ``device="cpu"``; raises without one) for the
+    ``preconditioner`` branch (module docstring).  ``spmv`` / ``structured``
+    are the plane and structured SpMVs the operator applies (the CUDA
+    kernels' plain versions can be substituted for comparison); ``macro`` is
+    the exact coarse lattice of the deflation preconditioners (the
+    permeability grid by default; ValueError if it does not tile the
+    lattice); ``smoother`` ("jacobi" or "cheb<k>") and ``pc2`` ("deflation"
+    or "mg", stencil2 only) are the reference's BENCH_SMOOTHER / BENCH_PC2
+    switches; ``maxiter`` bounds the "mg" branch's block CG."""
     if bisections % 2 or bisections < 2:
         raise ValueError(f"bench sizes need an even number >= 2 of bisections, "
                          f"got {bisections}")
+    if preconditioner not in PRECONDITIONERS:
+        raise ValueError(f"preconditioner must be one of {PRECONDITIONERS}, "
+                         f"got {preconditioner!r}")
+    cheb = _chebyshev_degree(smoother)
+    if cheb and preconditioner not in ("stencil", "stencil2"):
+        raise ValueError(f"smoother {smoother!r} is for the stencil branches, "
+                         f"not {preconditioner!r}")
+    if pc2 not in ("deflation", "mg") or (pc2 == "mg" and preconditioner != "stencil2"):
+        raise ValueError(f"pc2 must be 'deflation', or 'mg' with stencil2; got {pc2!r} "
+                         f"with {preconditioner!r}")
     # structured lattice of the bisected 100 x 20 criss grid (checked below)
     KY, KX = 10 << (bisections // 2), 50 << (bisections // 2)
+    if preconditioner != "mg" and pc2 != "mg" and (KX % macro[0] or KY % macro[1]):
+        raise ValueError(f"macro {tuple(macro)} does not tile the {KY} x {KX} lattice of "
+                         f"{bisections} bisections (the reference falls back to another "
+                         "route there; the port raises)")
     mid_shape = _select_mid_level(KY, KX, macro)
     settings = _solver_settings(bisections, (KY, KX))
     _highest_precision()
     device = resolve_device(device)
     geo = _bench_geometry(bisections, device)
-    if geo.order.lattice != (KY, KX):
-        raise AssertionError(f"structured lattice {geo.order.lattice}, expected {(KY, KX)}")
-    force = IndicatorFunction(_FORCES)
+    order = geo.order
+    if order.lattice != (KY, KX):
+        raise AssertionError(f"structured lattice {order.lattice}, expected {(KY, KX)}")
+    field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
+    num_dofs = geo.grid.num_cells * 3
+    to_soa = None
 
-    def assemble(field: torch.Tensor):
-        S = assemble_structured_spe10(geo.tensors, geo.broadcast(field.to(torch.float32)))
-        S = StencilBlockEll(S.planes, S.plan, spmv)
-        return scale_planes(S, structured_rhs(geo.tensors, force))
+    def deflation_pc(S, weight, sm):
+        """The weighted deflation preconditioner of the stencil branches; the
+        factored BCR's defect correction in float64, as the reference bench
+        applies it (x64 on)."""
+        return stencil_deflation_preconditioner(
+            S, macro, weight=weight, smoother=sm, newton_schulz=settings.newton_schulz,
+            mid_shape=mid_shape, mid_cheb=settings.mid_cheb, residual_dtype=torch.float64)
 
-    def precondition(S: StencilBlockEll, s: torch.Tensor):
-        if settings.symmetric:
-            S = S.symmetrized()
-        # weighted deflation space Z_w = diag(1/s) Z: the scaled system has
-        # near-kernel D^{1/2} 1, not constants
-        return S, stencil_deflation_preconditioner(
-            S, macro, weight=1.0 / s, newton_schulz=settings.newton_schulz,
-            mid_shape=mid_shape, mid_cheb=settings.mid_cheb)
+    def refined(S, B, M):
+        return stencil_refined_solve(S, B, M, tol=tol, inner_iters=settings.inner_iters,
+                                     inner_rtol=settings.inner_rtol,
+                                     outer_max=settings.outer_max, unroll=settings.unroll)
 
-    def solve(S: StencilBlockEll, B: torch.Tensor, s: torch.Tensor) -> BenchSolution:
-        S, M = precondition(S, s)
-        X, res, iters, sweeps = stencil_refined_solve(
-            S, B, M, tol=tol, inner_iters=settings.inner_iters,
-            inner_rtol=settings.inner_rtol, outer_max=settings.outer_max,
-            unroll=settings.unroll)
-        u = (X * s.to(X.dtype)).reshape(-1)[geo.from_soa]
-        return BenchSolution(u, res, iters, sweeps)
+    if preconditioner == "stencil2":
+        force = IndicatorFunction(_FORCES)
+        to_soa = geo.to_soa
+
+        def assemble(field: torch.Tensor):
+            S = assemble_structured_spe10(geo.tensors, geo.broadcast(field.to(torch.float32)))
+            S = StencilBlockEll(S.planes, S.plan, spmv)
+            return scale_planes(S, structured_rhs(geo.tensors, force))
+
+        def precondition(S: StencilBlockEll, s: torch.Tensor):
+            if settings.symmetric:
+                S = S.symmetrized()
+            sm = chebyshev_smoother(S, degree=cheb) if cheb else None
+            if pc2 == "mg":
+                return S, stencil_multigrid_preconditioner(
+                    S, newton_schulz=settings.newton_schulz, smoother=sm)
+            # weighted deflation space Z_w = diag(1/s) Z: the scaled system
+            # has near-kernel D^{1/2} 1, not constants
+            return S, deflation_pc(S, 1.0 / s, sm)
+
+        def solve(S: StencilBlockEll, B: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+            S, M = precondition(S, s)
+            X, res, iters, sweeps = refined(S, B, M)
+            return BenchSolution((X * s.to(X.dtype)).reshape(-1)[geo.from_soa], res, iters,
+                                 sweeps)
+    elif preconditioner == "stencil":
+        maps = soa_index_maps(order, 3)
+        to_soa = torch.as_tensor(maps.to_soa, dtype=torch.long, device=device)
+        from_soa = torch.as_tensor(maps.from_soa, dtype=torch.long, device=device)
+        assemble = _block_assembly(geo, device, torch.float32)
+
+        def planes(v):
+            return v[to_soa].reshape(3, 8, KY, KX)
+
+        def precondition(A, s: torch.Tensor):
+            S = StencilBlockEll.from_block_ell(A, order)
+            S = StencilBlockEll(S.planes, S.plan, spmv)
+            sm = chebyshev_smoother(S, degree=cheb) if cheb else None
+            return S, deflation_pc(S, planes(1.0 / s), sm)
+
+        def solve(A, b: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+            S, M = precondition(A, s)
+            X, res, iters, sweeps = refined(S, planes(b), M)
+            return BenchSolution(X.reshape(-1)[from_soa] * s.to(X.dtype), res, iters, sweeps)
+    elif preconditioner == "deflation":
+        nd = 3
+        perm = torch.as_tensor((np.asarray(order.perm)[:, None] * nd
+                                + np.arange(nd)).reshape(-1)).to(device)
+        inv_flat = torch.as_tensor((np.asarray(order.inv)[:, None] * nd
+                                    + np.arange(nd)).reshape(-1)).to(device)
+        assemble = _block_assembly(geo, device, torch.float32)
+
+        def precondition(A, s: torch.Tensor):
+            A_st = StructuredBlockEll.from_block_ell(A, order, structured)
+            return A_st, structured_deflation_preconditioner(A_st, order, macro,
+                                                             coarse_dtype=torch.float32)
+
+        def solve(A, b: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+            A_st, M = precondition(A, s)
+            u_st, res, iters, sweeps = refined_deflated_solve(
+                A_st, b[inv_flat], None, macro[0] * macro[1], tol=tol,
+                inner_iters=settings.inner_iters, outer_max=DEFLATION_OUTER_MAX, M=M, unroll=4)
+            return BenchSolution(u_st[perm] * s.to(u_st.dtype), res, iters, sweeps)
+    else:  # "mg": float64, as the reference's assembly promotes under x64
+        grids = [geo.grid] + [alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=b)
+                              for b in range(bisections - 2, -1, -2)]
+        assemble = _block_assembly(geo, device, torch.float64)
+
+        def precondition(A, s: torch.Tensor):
+            return A, mg_preconditioner(MultigridHierarchy(grids, A, pre=3, post=3))
+
+        def solve(A, b: torch.Tensor, s: torch.Tensor) -> BenchSolution:
+            A, M = precondition(A, s)
+            u, res, iters = block_cg(A, b, tol=tol, maxiter=maxiter, M=M)
+            return BenchSolution(u * s, float(res), iters, 1)
 
     def fn(field: torch.Tensor) -> BenchSolution:
         return solve(*assemble(field))
 
-    field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
-    return Spe10Bench(fn, field, geo.grid.num_cells * 3, assemble, solve, precondition,
-                      geo.to_soa, settings, mid_shape, geo.order.offsets)
+    return Spe10Bench(fn, field, num_dofs, assemble, solve, precondition, to_soa, settings,
+                      mid_shape, order.offsets, preconditioner)
 
 
 def _sync(device: torch.device) -> None:
@@ -256,13 +417,14 @@ def _sync(device: torch.device) -> None:
 
 
 def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
-                    device="cuda") -> dict:
+                    device="cuda", **options) -> dict:
     """Median wall time of ``repeats`` timed calls (after one warm-up call),
-    each on the field perturbed by 1 + 1e-6 (i+1).  Besides the numbers
-    (set-up and warm-up seconds included), the dict carries the bench
-    object, the last field and the last solution."""
+    each on the field perturbed by 1 + 1e-6 (i+1); ``options`` go to
+    ``build_spe10_bench`` (the branch and its switches).  Besides the
+    numbers (set-up and warm-up seconds included), the dict carries the
+    bench object, the last field and the last solution."""
     t0 = time.perf_counter()
-    bench = build_spe10_bench(bisections=bisections, tol=tol, device=device)
+    bench = build_spe10_bench(bisections=bisections, tol=tol, device=device, **options)
     dev = bench.field.device
     _sync(dev)
     setup_s = time.perf_counter() - t0

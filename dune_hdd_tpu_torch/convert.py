@@ -6,7 +6,9 @@ its StructuredAssemblyPlan, or the pattern fields and slot values of its
 assembled SparseMatrix family), so both sides can run on the same operator
 and inputs.  ``coupling_from_numpy`` carries the four blocks of a
 BlockSWIPDG coupling operator; ``reduced_model_from_numpy`` carries a
-trained reduced model (its dense arrays and coefficient expressions).
+trained reduced model (its dense arrays and coefficient expressions);
+``block_ell_from_numpy`` and ``prolongation_from_numpy`` carry a block-ELL
+matrix and a multigrid prolongation.
 """
 from __future__ import annotations
 
@@ -18,14 +20,16 @@ import torch
 from .affine import AffineDecomposition
 from .device import resolve_device
 from .discretizations.block_swipdg import CouplingOperator
-from .la.block_ell import StructuredBlockEll
+from .la.block_ell import BlockEllMatrix, StructuredBlockEll
+from .la.multigrid import DGProlongation
 from .la.sparse import SparseMatrix, SparsityPattern
 from .la.stencil import StencilBlockEll
 from .la.stencil_assembly import StructuredAssemblyPlan, _FaceFamily
 from .mor.reductor import ReducedModel
 from .parameters import ParameterFunctional
 
-__all__ = ["stencil_from_numpy", "structured_from_numpy", "assembly_plan_from_numpy",
+__all__ = ["stencil_from_numpy", "structured_from_numpy", "block_ell_from_numpy",
+           "prolongation_from_numpy", "assembly_plan_from_numpy",
            "pattern_from_numpy", "sparse_from_numpy", "coupling_from_numpy", "affine_from_numpy",
            "reduced_model_from_numpy"]
 
@@ -138,6 +142,23 @@ def structured_from_numpy(neighbors: np.ndarray, blocks: np.ndarray, offsets,
     if blocks.ndim != 4 or blocks.shape[1] != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"blocks must be [nc, 4, nd, nd], got {blocks.shape}")
     return StructuredBlockEll(np.array(neighbors), torch.tensor(blocks, device=device), offsets)
+
+
+def block_ell_from_numpy(neighbors: np.ndarray, blocks: np.ndarray, device) -> BlockEllMatrix:
+    """The port's BlockEllMatrix from a neighbour table [NC, B] and blocks
+    [NC, B, nd, nd], on ``device`` in the blocks' dtype."""
+    blocks = np.ascontiguousarray(blocks)
+    if blocks.ndim != 4 or blocks.shape[2] != blocks.shape[3]:
+        raise ValueError(f"blocks must be [NC, B, nd, nd], got {blocks.shape}")
+    return BlockEllMatrix(np.array(neighbors), torch.tensor(blocks, device=device))
+
+
+def prolongation_from_numpy(P_cell: np.ndarray, parent: np.ndarray, children_per_parent: int,
+                            device) -> DGProlongation:
+    """The port's DGProlongation from the per-child interpolation [NCf, nd,
+    nd] and the parent map [NCf], on ``device`` in P_cell's dtype."""
+    return DGProlongation(torch.tensor(np.asarray(P_cell), device=device),
+                          np.array(parent, dtype=np.int64), int(children_per_parent))
 
 
 def assembly_plan_from_numpy(splan) -> StructuredAssemblyPlan:

@@ -47,6 +47,16 @@ class StructuredOrder:
     def num_cells(self) -> int:
         return self.perm.shape[0]
 
+    def aggregate_plan(self, macro_shape: Tuple[int, int]) -> Optional[Tuple[int, int]]:
+        """(fy, fx): fine half-quads per macro cell along each axis of each
+        subclass lattice, or None if the (mx, my) macro cells don't tile
+        the lattice."""
+        mx, my = int(macro_shape[0]), int(macro_shape[1])
+        ky, kx = self.lattice
+        if kx % mx or ky % my:
+            return None
+        return ky // my, kx // mx
+
 
 def _classify(grid: Grid, lower: np.ndarray, upper: np.ndarray):
     """(IX, IY, cls4, (NX, NY)) on the half-quad lattice, or None if the grid

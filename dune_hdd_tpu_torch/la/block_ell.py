@@ -92,14 +92,18 @@ class StructuredBlockEll:
     cell offsets of each (subclass, slot) neighbour, read modulo nc
     (wrapped reads meet zero blocks at the domain boundary).
 
-    The SpMV reads the blocks as SoA planes [4, nd, nd, nc], made once here
-    (no copy when ``blocks`` is already a permuted view of such planes)."""
+    The SpMV ``spmv(planes, x, offsets)`` (the hand-written kernel unless a
+    caller substitutes its plain version) reads the blocks as SoA planes
+    [4, nd, nd, nc], made once here (no copy when ``blocks`` is already a
+    permuted view of such planes)."""
 
-    def __init__(self, neighbors, blocks: torch.Tensor, offsets):
+    def __init__(self, neighbors, blocks: torch.Tensor, offsets,
+                 spmv: Callable = structured_spmv):
         self.neighbors = neighbors
         self.blocks = blocks
         self.offsets = tuple(tuple(int(o) for o in row) for row in offsets)
         self.planes = blocks.permute(1, 2, 3, 0).contiguous()
+        self.spmv = spmv
 
     @property
     def num_cells(self) -> int:
@@ -110,25 +114,26 @@ class StructuredBlockEll:
         return self.blocks.shape[-1]
 
     def with_blocks(self, blocks: torch.Tensor) -> "StructuredBlockEll":
-        return StructuredBlockEll(self.neighbors, blocks, self.offsets)
+        return StructuredBlockEll(self.neighbors, blocks, self.offsets, self.spmv)
 
     @classmethod
-    def from_block_ell(cls, A: BlockEllMatrix, order) -> "StructuredBlockEll":
+    def from_block_ell(cls, A: BlockEllMatrix, order,
+                       spmv: Callable = structured_spmv) -> "StructuredBlockEll":
         """Permute a BlockEllMatrix into structured order (one gather of the
         block array)."""
         cell_idx, slot_idx = _structured_gather(A, order)
         dev = A.blocks.device
         blocks = A.blocks[torch.as_tensor(cell_idx).to(dev), torch.as_tensor(slot_idx).to(dev)]
         neighbors = np.asarray(order.perm)[np.asarray(A.neighbors)[cell_idx, slot_idx]]
-        return cls(neighbors.astype(np.int32), blocks, order.offsets)
+        return cls(neighbors.astype(np.int32), blocks, order.offsets, spmv)
 
     def neighbor_fields(self, xc: torch.Tensor) -> torch.Tensor:
         """[nc, 4, nd]: x at self and at each geometric-slot neighbour."""
         return structured_neighbor_fields(xc, self.offsets)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """x [nc * nd] cell-major -> A x, through ``structured_spmv``."""
-        return structured_spmv(self.planes, x.contiguous(), self.offsets)
+        """x [nc * nd] cell-major -> A x, through ``spmv``."""
+        return self.spmv(self.planes, x.contiguous(), self.offsets)
 
     def diagonal_blocks(self) -> torch.Tensor:
         return self.blocks[:, 0]

@@ -1,15 +1,15 @@
 """SoA stencil form of the structured block operator, its symmetric form,
-its two- and multi-level deflation preconditioners and the mixed-precision
+its smoothers (block Jacobi, Chebyshev), its two- and multi-level deflation
+preconditioners with their coarse solves (dense LU, BCR, and the factored
+BCR for coarse spaces above 4096 aggregates) and the mixed-precision
 refined PCG.
 
-Counterpart of ``dune_hdd_tpu/la/stencil.py`` for the bench's path and the
-``stencil_cg`` solver option of the SWIPDG discretization (the factored BCR
-coarse solve for more than 4096 aggregates is not ported).  The
-operator lives as planes W[slot, i, j, subclass, KY, KX]
-(slot 0 = self) and vectors as X[nd, 8, KY, KX]; for a subclass-k cell at
-lattice position (iy, ix) its geometric slot-s neighbour is the
-subclass-``k_src`` cell at (iy+dy, ix+dx).  Reads that wrap around a lattice
-axis meet zero blocks (domain boundary), so the per-axis wrap is harmless.
+Counterpart of ``dune_hdd_tpu/la/stencil.py``.  The operator lives as
+planes W[slot, i, j, subclass, KY, KX] (slot 0 = self) and vectors as
+X[nd, 8, KY, KX]; for a subclass-k cell at lattice position (iy, ix) its
+geometric slot-s neighbour is the subclass-``k_src`` cell at
+(iy+dy, ix+dx).  Reads that wrap around a lattice axis meet zero blocks
+(domain boundary), so the per-axis wrap is harmless.
 
 The SpMV is the hand-written kernel ``kernels/plane_spmv``; everything else
 is plain torch on the planes' device.
@@ -23,13 +23,15 @@ import numpy as np
 import torch
 
 from ..kernels.plane_spmv import plane_spmv
-from .block_ell import BlockEllMatrix, _structured_gather, inv3x3
+from .block_ell import BlockEllMatrix, StructuredBlockEll, inv3x3
 
 __all__ = [
     "StencilBlockEll",
     "stencil_plan",
     "soa_index_maps",
     "jacobi_smoother",
+    "estimate_lambda_max",
+    "chebyshev_smoother",
     "stencil_deflation_preconditioner",
     "stencil_pcg",
     "stencil_refined_solve",
@@ -105,14 +107,17 @@ class StencilBlockEll:
     @classmethod
     def from_block_ell(cls, A: BlockEllMatrix, order) -> "StencilBlockEll":
         """The plane layout of a BlockEllMatrix on a structured grid: one
-        gather of the block array (set-up, ~1 pass over the operator)."""
-        cell_idx, slot_idx = _structured_gather(A, order)
-        dev = A.blocks.device
-        blocks = A.blocks[torch.as_tensor(cell_idx).to(dev), torch.as_tensor(slot_idx).to(dev)]
+        gather of the block array into structured order (set-up, ~1 pass
+        over the operator)."""
+        return cls.from_structured(StructuredBlockEll.from_block_ell(A, order), order)
+
+    @classmethod
+    def from_structured(cls, A_st: StructuredBlockEll, order) -> "StencilBlockEll":
+        """The plane layout of a StructuredBlockEll: its SoA planes
+        [4, nd, nd, nc] viewed on the (subclass, KY, KX) lattice (no copy)."""
         KY, KX = order.lattice
-        nd = A.nd
-        planes = blocks.reshape(8, KY, KX, 4, nd, nd).permute(3, 4, 5, 0, 1, 2).contiguous()
-        return cls(planes, stencil_plan(order))
+        nd = A_st.nd
+        return cls(A_st.planes.reshape(4, nd, nd, 8, KY, KX), stencil_plan(order))
 
     @property
     def nd(self) -> int:
@@ -227,6 +232,28 @@ def jacobi_smoother(A: StencilBlockEll) -> Callable:
         return torch.stack(out)
 
     return apply
+
+
+def estimate_lambda_max(A: StencilBlockEll, smoother: Callable, iters: int = 12,
+                        seed: int = 0) -> torch.Tensor:
+    """Power iteration on smoother o A from the reference's numpy start
+    vector (set-up time; ``iters`` + 1 matvecs)."""
+    KY, KX = A.lattice
+    return _power_lambda_max(A.matvec, smoother, (A.nd, 8, KY, KX), A.planes.dtype,
+                             device=A.planes.device, iters=iters, seed=seed)
+
+
+def chebyshev_smoother(A: StencilBlockEll, degree: int = 3,
+                       lmax: Optional[torch.Tensor] = None, ratio: float = 8.0,
+                       lmax_safety: float = 1.1) -> Callable:
+    """Chebyshev polynomial smoother in M_J^-1 A on [lmax/ratio, lmax], M_J
+    the block-Jacobi smoother: a fixed symmetric positive operator, safe
+    inside CG.  ``lmax`` defaults to :func:`estimate_lambda_max`."""
+    Mj = jacobi_smoother(A)
+    if lmax is None:
+        lmax = estimate_lambda_max(A, Mj)
+    return _cheb_apply(A.matvec, Mj, degree, torch.as_tensor(lmax), ratio=ratio,
+                       lmax_safety=lmax_safety)
 
 
 # -- aggregation, coarse bands and coarse solves in plane layout -------------
@@ -459,6 +486,21 @@ def _coarse_E_banded(A: StencilBlockEll, agg: _Aggregation, P: torch.Tensor) -> 
     return E
 
 
+def _shift_down(T: torch.Tensor) -> torch.Tensor:
+    """[T[n-1] dropped, zero block first]: block i gets T[i-1]."""
+    return torch.cat([torch.zeros_like(T[:1]), T[:-1]])
+
+
+def _shift_up(T: torch.Tensor) -> torch.Tensor:
+    """Block i gets T[i+1], the last a zero block."""
+    return torch.cat([T[1:], torch.zeros_like(T[:1])])
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """[even[0], odd[0], even[1], odd[1], ...] along the first axis."""
+    return torch.stack([even, odd], dim=1).reshape((2 * even.shape[0],) + tuple(even.shape[1:]))
+
+
 def _block_tridiag_solve(B: torch.Tensor, C: torch.Tensor,
                          R: torch.Tensor) -> torch.Tensor:
     """Solve the symmetric block-tridiagonal system
@@ -476,23 +518,14 @@ def _block_tridiag_solve(B: torch.Tensor, C: torch.Tensor,
     CRo = C[1::2]  # C[2e+1] : odd 2e+1  -> even 2e+2  (last is C[n-1] = 0)
     G = CL @ Binv_odd
     H = CRo.transpose(-1, -2) @ Binv_odd
-    T = H @ CRo
-    B_new = B[0::2] - G @ CL.transpose(-1, -2)
-    B_new = B_new - torch.cat([torch.zeros_like(T[:1]), T[:-1]], dim=0)
+    B_new = B[0::2] - G @ CL.transpose(-1, -2) - _shift_down(H @ CRo)
     C_new = -(G @ CRo)
     R_odd = R[1::2]
-    R_new = R[0::2] - G @ R_odd
-    HR = H @ R_odd
-    R_new = R_new - torch.cat([torch.zeros_like(HR[:1]), HR[:-1]], dim=0)
+    R_new = R[0::2] - G @ R_odd - _shift_down(H @ R_odd)
     y_even = _block_tridiag_solve(B_new, C_new, R_new)
     # back-substitute odds: y[2e+1] = Binv (r - CL^T y[2e] - CRo y[2e+2])
-    y_next = torch.cat([y_even[1:], torch.zeros_like(y_even[:1])], dim=0)
-    y_odd = Binv_odd @ (R_odd - CL.transpose(-1, -2) @ y_even - CRo @ y_next)
-    out = torch.empty((n,) + tuple(y_even.shape[1:]), dtype=y_even.dtype,
-                      device=y_even.device)
-    out[0::2] = y_even
-    out[1::2] = y_odd
-    return out
+    return _interleave(y_even, Binv_odd @ (R_odd - CL.transpose(-1, -2) @ y_even
+                                           - CRo @ _shift_up(y_even)))
 
 
 def _newton_schulz(Es: torch.Tensor, Einv: torch.Tensor, steps: int) -> torch.Tensor:
@@ -549,18 +582,185 @@ def _coarse_inverse(E: torch.Tensor, newton_schulz: int = 3) -> Callable:
     return solve
 
 
-_FACTORED_BCR = ("the factored BCR coarse solve for more than 4096 aggregates "
-                 "is not ported yet (ROADMAP queue 1, step 4b)")
+def _coarse_E(A: StencilBlockEll, agg: _Aggregation,
+              P: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense E = Z^T A Z via one scatter-add (the sorting accumulate, the
+    same in every build) of the plane pairing sums (set-up; equal to
+    `_coarse_E_banded` up to summation order).  ``P``
+    [4, 8, KY, KX]: the (weighted) pairing sums, default 1^T W 1."""
+    KY, KX = A.lattice
+    mx, my, fy, fx = agg.mx, agg.my, agg.fy, agg.fx
+    n_agg = mx * my
+    iy, ix = np.meshgrid(np.arange(KY), np.arange(KX), indexing="ij")
+    agg_field = (ix // fx) * my + (iy // fy)  # [KY, KX]
+    rows = np.broadcast_to(agg_field, (4, 8, KY, KX))
+    cols = np.empty((4, 8, KY, KX), dtype=np.int64)
+    cols[0] = agg_field
+    valid = np.ones((4, 8, KY, KX), dtype=bool)
+    for s in range(3):
+        for k in range(8):
+            _, dy, dx = A.plan[k][s]
+            cols[s + 1, k] = np.roll(agg_field, (-dy, -dx), axis=(0, 1))
+            # wrapped entries carry zero blocks; masked all the same
+            if dy:
+                valid[s + 1, k, slice(KY - dy, None) if dy > 0 else slice(None, -dy)] = False
+            if dx:
+                valid[s + 1, k, :, slice(KX - dx, None) if dx > 0 else slice(None, -dx)] = False
+    if P is None:
+        P = A.planes.sum(dim=(1, 2))
+    dev = P.device
+    flat = torch.as_tensor((rows * n_agg + cols).reshape(-1)).to(dev)
+    sums = P.reshape(-1) * torch.as_tensor(valid.reshape(-1)).to(dev, P.dtype)
+    E = torch.zeros(n_agg * n_agg, dtype=P.dtype, device=dev)
+    return E.index_put_((flat,), sums, accumulate=True).reshape(n_agg, n_agg)
 
 
-def _exact_inverse(E: torch.Tensor, mx: int, my: int, fx: int,
-                   newton_schulz: int) -> Callable:
-    """The exact coarse solve of a dense x-major E: BCR when the aggregation
-    factor in x is >= 2 (the coarse lattice is then block-tridiagonal), the
-    dense LU inverse when fx == 1 (|dx| = 2 shifts couple macro columns two
-    apart, which BCR would drop)."""
+def _bands_to_blocktridiag(bands: dict, mx: int, my: int):
+    """(B, C) [mx, my, my] block-tridiagonal form of the x-major banded E
+    (|vx| <= 1, i.e. aggregation factor fx >= 2).  C_i couples block i to
+    i + 1; it averages the two assembled copies of each coupling (the +1
+    and the -1 band, equal up to assembly rounding since E is symmetric),
+    so the cyclic reduction's C / C^T convention holds exactly."""
+    vec0 = next(iter(bands.values()))
+    dt, dev = vec0.dtype, vec0.device
+    B = torch.zeros((mx, my, my), dtype=dt, device=dev)
+    C_up = torch.zeros_like(B)
+    C_lo = torch.zeros_like(B)
+    ay = np.arange(my)
+    for (vy, vx), vec in bands.items():
+        if abs(vx) > 1:
+            raise ValueError(f"band vx={vx}: coarse lattice not block-tridiagonal "
+                             "(needs aggregation factor fx >= 2)")
+        V = vec.reshape(mx, my)
+        by = ay + vy
+        ok = (by >= 0) & (by < my)
+        r = torch.as_tensor(ay[ok]).to(dev)
+        c = torch.as_tensor(by[ok]).to(dev)
+        if vx == 0:
+            B[:, r, c] += V[:, r]
+        elif vx == 1:  # row (ax, ay) -> col (ax+1, ay+vy), stored at block ax
+            C_up[:-1, r, c] += V[:-1, r]
+        else:  # row (ax, ay) -> col (ax-1, ay+vy): C[ax-1][ay+vy, ay]
+            C_lo[:-1, c, r] += V[1:, r]
+    return B, 0.5 * (C_up + C_lo)
+
+
+def _block_tridiag_factor(B: torch.Tensor, C: torch.Tensor) -> list:
+    """Factor phase of block cyclic reduction (see `_block_tridiag_solve`):
+    per level the elimination tensors (Binv_odd, G, H, CL, CRo), then the
+    inverse of the last block.  O(n m^2) memory, so each later solve
+    streams far less than a dense inverse would."""
+    levels = []
+    while B.shape[0] > 1:
+        Binv_odd = torch.linalg.inv(B[1::2])
+        CL, CRo = C[0::2], C[1::2]
+        G = CL @ Binv_odd
+        H = CRo.transpose(-1, -2) @ Binv_odd
+        B = B[0::2] - G @ CL.transpose(-1, -2) - _shift_down(H @ CRo)
+        C = -(G @ CRo)
+        levels.append((Binv_odd, G, H, CL, CRo))
+    levels.append(torch.linalg.inv(B[0]))
+    return levels
+
+
+def _block_tridiag_apply(levels: list, R: torch.Tensor) -> torch.Tensor:
+    """Solve with `_block_tridiag_factor` levels; R [n, m, N]."""
+    stack = []
+    for _Binv_odd, G, H, _CL, _CRo in levels[:-1]:
+        R_odd = R[1::2]
+        R = R[0::2] - G @ R_odd - _shift_down(H @ R_odd)
+        stack.append(R_odd)
+    y = (levels[-1] @ R[0])[None]
+    for (Binv_odd, _G, _H, CL, CRo), R_odd in zip(reversed(levels[:-1]), reversed(stack)):
+        y = _interleave(y, Binv_odd @ (R_odd - CL.transpose(-1, -2) @ y - CRo @ _shift_up(y)))
+    return y
+
+
+def _factored_tridiag_solve(Bs: torch.Tensor, Cs: torch.Tensor, refine: int,
+                            residual_dtype: torch.dtype) -> Callable:
+    """Direct solve of the scaled block-tridiagonal system (Bs, Cs) [mx, m, m]
+    for one right-hand side r [mx, m, 1] by factored cyclic reduction, mx
+    padded to a power of two with identity blocks.  ``refine`` defect
+    corrections follow, each with the residual in ``residual_dtype``: with a
+    float64 residual each squares the float32 solve's error; with a float32
+    one they are skipped (its residual is noise-limited), as they are for
+    an operator that is not float32."""
+    mx, my, wdt = Bs.shape[0], Bs.shape[1], Bs.dtype
+    n2 = 1 << (mx - 1).bit_length()
+    pad = Bs.new_zeros((n2 - mx, my, 1))
+    eye = torch.eye(my, dtype=wdt, device=Bs.device).expand(n2 - mx, my, my)
+    levels = _block_tridiag_factor(torch.cat([Bs, eye]), torch.cat([Cs, pad.new_zeros(
+        (n2 - mx, my, my))]))
+    nref = 0 if (residual_dtype == torch.float32 or wdt != torch.float32) else refine
+    if nref:
+        Br, Cr = Bs.to(residual_dtype), Cs.to(residual_dtype)
+        CpT = _shift_down(Cr).transpose(-1, -2)
+
+    def apply(r):
+        return _block_tridiag_apply(levels, torch.cat([r, pad]))[:mx]
+
+    def solve(r):
+        y = apply(r)
+        if nref:
+            r_hi = r.to(residual_dtype)
+        for _ in range(nref):
+            y_hi = y.to(residual_dtype)
+            res = r_hi - (Br @ y_hi + Cr @ _shift_up(y_hi) + CpT @ _shift_down(y_hi))
+            y = y + apply(res.to(wdt))
+        return y
+
+    return solve
+
+
+def _factored_bcr_solve_from_blocks(B: torch.Tensor, C: torch.Tensor, mx: int, my: int,
+                                    refine: int = 1,
+                                    residual_dtype: torch.dtype = torch.float64) -> Callable:
+    """Coarse solve from the block-tridiagonal (B, C) directly, never dense
+    (the (200, 40) coarse space is 8000 aggregates): blockwise symmetric
+    diagonal scaling, then `_factored_tridiag_solve`.  Returns the solve of
+    a flat x-major [mx * my] right-hand side."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(B, dim1=-2, dim2=-1).abs(), min=1e-30))  # [mx, my]
+    Bs = B / (d[:, :, None] * d[:, None, :])
+    d_next = torch.cat([d[1:], torch.ones_like(d[:1])])  # C[mx - 1] = 0 couples nothing
+    Cs = C / (d[:, :, None] * d_next[:, None, :])
+    tri = _factored_tridiag_solve(Bs, Cs, refine, residual_dtype)
+
+    def solve(rc):
+        y = tri((rc.reshape(mx, my) / d).to(B.dtype)[:, :, None])
+        return (y[:, :, 0] / d).reshape(-1).to(rc.dtype)
+
+    return solve
+
+
+def _coarse_inverse_bcr_factored(E: torch.Tensor, mx: int, my: int, refine: int = 1,
+                                 residual_dtype: torch.dtype = torch.float64) -> Callable:
+    """Coarse solve of a dense x-major E by factored block cyclic reduction
+    on its diagonally scaled block-tridiagonal part: a direct solve per
+    application, in E's dtype, with ``refine`` defect corrections whose
+    residual is taken in ``residual_dtype`` (`_factored_tridiag_solve`)."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(E).abs(), min=1e-30))
+    E4 = ((E / d[:, None]) / d[None, :]).reshape(mx, my, mx, my)
+    ix = torch.arange(mx, device=E.device)
+    B = E4[ix, :, ix, :]
+    C = torch.cat([E4[ix[:-1], :, ix[:-1] + 1, :], E.new_zeros((1, my, my))])
+    tri = _factored_tridiag_solve(B, C, refine, residual_dtype)
+
+    def solve(rc):
+        y = tri((rc / d).to(E.dtype).reshape(mx, my, 1))
+        return (y.reshape(-1) / d).to(rc.dtype)
+
+    return solve
+
+
+def _exact_inverse(E: torch.Tensor, mx: int, my: int, fx: int, newton_schulz: int,
+                   residual_dtype: torch.dtype) -> Callable:
+    """The exact coarse solve of a dense x-major E: factored BCR above 4096
+    aggregates and dense BCR up to it when the aggregation factor in x is
+    >= 2 (the coarse lattice is then block-tridiagonal), the dense LU
+    inverse when fx == 1 (|dx| = 2 shifts couple macro columns two apart,
+    which BCR would drop)."""
     if fx >= 2 and mx * my > 4096:
-        raise NotImplementedError(_FACTORED_BCR)
+        return _coarse_inverse_bcr_factored(E, mx, my, residual_dtype=residual_dtype)
     if fx >= 2:
         return _coarse_inverse_bcr(E, mx, my, newton_schulz)
     return _coarse_inverse(E, newton_schulz)
@@ -616,12 +816,28 @@ def _cheb_apply(matvec: Callable, precond: Callable, degree: int, lmax,
     return apply
 
 
+def _middle_inverse(bands1: dict, my1: int, mx1: int, macro_shape,
+                    newton_schulz: int = 2, cheb_degree: int = 2, cheb_ratio: float = 8.0,
+                    dtype=torch.float32,
+                    residual_dtype: torch.dtype = torch.float64) -> Callable:
+    """Approximate inverse of the middle-level stencil operator E1 (bands on
+    an [my1, mx1] lattice): the balanced two-level operator with the exact
+    ``macro_shape`` coarse solve, Chebyshev-wrapped (`_multilevel_inverse`
+    with one level below)."""
+    return _multilevel_inverse(bands1, my1, mx1, [tuple(macro_shape)],
+                               newton_schulz=newton_schulz, cheb_degree=cheb_degree,
+                               cheb_ratio=cheb_ratio, dtype=dtype,
+                               residual_dtype=residual_dtype)
+
+
 def _multilevel_inverse(bands1: dict, my1: int, mx1: int, shapes,
                         newton_schulz: int = 2, cheb_degree: int = 2,
-                        cheb_ratio: float = 8.0, dtype=torch.float32) -> Callable:
+                        cheb_ratio: float = 8.0, dtype=torch.float32,
+                        residual_dtype: torch.dtype = torch.float64) -> Callable:
     """Approximate inverse of the stencil operator E1 (bands on an [my1, mx1]
     lattice).  ``shapes``: successively coarser (mx, my) lattices below it;
-    the last one is solved exactly (dense BCR / LU), every intermediate one
+    the last one is solved exactly (`_exact_inverse`; ``residual_dtype`` is
+    its factored BCR's defect-correction precision), every intermediate one
     by recursion.  Each level is the balanced two-level operator (Jacobi on
     the band diagonal + the next level's inverse as its coarse solve),
     Chebyshev-wrapped for ``cheb_degree`` >= 2, so the chain is a fixed SPD
@@ -634,14 +850,15 @@ def _multilevel_inverse(bands1: dict, my1: int, mx1: int, shapes,
     bands2 = _aggregate_bands(bands1, my1, mx1, gy, gx)
     if len(shapes) == 1:
         E2 = _bands_to_dense(bands2, my2, mx2)
-        coarse2_flat = _exact_inverse(E2, mx2, my2, gx, newton_schulz)
+        coarse2_flat = _exact_inverse(E2, mx2, my2, gx, newton_schulz, residual_dtype)
 
         def coarse2(r2d):  # [my2, mx2] -> [my2, mx2] via the x-major flat solve
             return coarse2_flat(r2d.t().reshape(-1)).reshape(mx2, my2).t()
     else:
         coarse2 = _multilevel_inverse(bands2, my2, mx2, shapes[1:],
                                       newton_schulz=newton_schulz, cheb_degree=cheb_degree,
-                                      cheb_ratio=cheb_ratio, dtype=dtype)
+                                      cheb_ratio=cheb_ratio, dtype=dtype,
+                                      residual_dtype=residual_dtype)
     E1mv = _band_matvec(bands1)
     d1 = bands1[(0, 0)]
     Dinv = torch.where(d1 != 0, 1.0 / torch.where(d1 != 0, d1, torch.ones_like(d1)),
@@ -664,13 +881,15 @@ def _multilevel_inverse(bands1: dict, my1: int, mx1: int, shapes,
 
 def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
                                      weight: torch.Tensor,
+                                     smoother: Optional[Callable] = None,
                                      newton_schulz: int = 3, mid_shape=None,
-                                     mid_cheb: int = 2) -> Callable:
+                                     mid_cheb: int = 2,
+                                     residual_dtype: torch.dtype = torch.float64) -> Callable:
     """Balanced two- or three-level preconditioner in the plane layout,
 
         M^-1 r = Q r + (I - Q A) S (I - A Q) r,   Q = Z_w E^-1 Z_w^T,
 
-    with S the block-Jacobi smoother and Z_w = diag(w) Z the weighted
+    with S the ``smoother`` (block Jacobi by default) and Z_w = diag(w) Z the weighted
     piecewise-constant aggregation onto ``macro_shape``.  ``weight``
     [nd, 8, KY, KX] is sqrt(diag A) = 1/s for a diagonally scaled system, so
     the coarse space contains the scaled near-kernel D^{1/2} 1.  The
@@ -683,8 +902,13 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
     Galerkin operator E1 is a 9-point stencil of bands, inverted
     approximately by ``_multilevel_inverse`` down to the exact
     ``macro_shape`` level, Chebyshev-wrapped with degree ``mid_cheb``.
-    The preconditioner is built from ``A.planes``, the assembled operator,
-    also when A applies its symmetrized planes."""
+
+    The exact level: dense LU (fx == 1), dense BCR up to 4096 aggregates,
+    above that (two-level) the factored BCR straight from the coarse bands,
+    never densified; ``residual_dtype`` is the precision of the factored
+    solves' defect correction (float32: none).  The preconditioner is built
+    from ``A.planes``, the assembled operator, also when A applies its
+    symmetrized planes."""
     # weighted pairing sums P_w[s,k] = sum_ij w_i W[s,i,j] w_j(neighbour)
     wnbr = A.neighbor_fields(weight)  # [4][nd, 8, KY, KX]
     Pw = torch.stack([(weight[:, None] * A.planes[s] * wnbr[s][None, :]).sum(dim=(0, 1))
@@ -698,15 +922,19 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
     if agg is None:
         raise ValueError(f"aggregation lattice {tuple(mid_shape or macro_shape)} does not "
                          f"tile the stencil lattice {A.lattice}")
-    smoother = jacobi_smoother(A)
+    smoother = smoother or jacobi_smoother(A)
     if mid_shape is not None:
         coarse = _multilevel_inverse(_stencil_bands(A, agg, Pw), agg.my, agg.mx,
                                      mids[1:] + [tuple(macro_shape)],
                                      newton_schulz=newton_schulz, cheb_degree=mid_cheb,
-                                     dtype=A.planes.dtype)
+                                     dtype=A.planes.dtype, residual_dtype=residual_dtype)
+    elif agg.fx >= 2 and agg.mx * agg.my > 4096:
+        Bb, Cb = _bands_to_blocktridiag(_coarse_bands(A, agg, Pw), agg.mx, agg.my)
+        coarse = _factored_bcr_solve_from_blocks(Bb, Cb, agg.mx, agg.my,
+                                                 residual_dtype=residual_dtype)
     else:
         coarse = _exact_inverse(_coarse_E_banded(A, agg, Pw), agg.mx, agg.my, agg.fx,
-                                newton_schulz)
+                                newton_schulz, residual_dtype)
 
     AZ = torch.stack([(A.planes[s] * wnbr[s][None, :]).sum(dim=1)
                       for s in range(4)])  # [4, nd, 8, KY, KX]

@@ -7,7 +7,18 @@ level (100, 20)).  Both reach a true 1e-6 relative residual, the total
 inner PCG iterations lie within max(6, 15%) of each other, and the
 solutions agree (see ``test_slice_matches_reference`` for the bars).  The
 bench's size-dependent choices (middle levels, solver settings) equal the
-reference's up to 12 bisections."""
+reference's up to 12 bisections.
+
+The other branches at 2 bisections against the reference's function with
+its BENCH_SMOOTHER / BENCH_PC2 switches (``test_branch_matches_reference``):
+``deflation`` and ``stencil`` (float32 block-ELL assembly), ``stencil2`` with
+``smoother="cheb2"`` and with ``pc2="mg"`` to a true 1e-6, rechecked in
+float64 with the plain gather SpMV; ``mg`` (float64 assembly, as the
+reference's promotes under x64) with block CG to its recurrence residual
+1e-5.  The solutions agree within 1e-4 x max, under the floor of 1.7e-4 by
+which the converged solution moves when the field moves by 1e-6.  Where
+the reference falls back to another route (a macro that does not tile the
+lattice), the port raises ValueError."""
 import os
 
 import numpy as np
@@ -25,7 +36,7 @@ from dune_hdd_tpu_torch.bench_harness import (  # noqa: E402
     build_spe10_bench,
     run_spe10_bench,
 )
-from dune_hdd_tpu_torch.convert import stencil_from_numpy  # noqa: E402
+from dune_hdd_tpu_torch.convert import block_ell_from_numpy, stencil_from_numpy  # noqa: E402
 from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference  # noqa: E402
 
 
@@ -194,3 +205,57 @@ def test_solver_settings_match_reference(bisections):
     assert st.outer_max == (500 if inner_rtol >= 3e-1 else 120)
     assert (st.unroll, st.newton_schulz, st.mid_cheb) == (2, 2, 2)
     assert st.symmetric == (bisections >= 8) == (lattice[0] * lattice[1] >= 128000)
+
+
+# (branch, the port's switches, the reference's environment)
+BRANCHES = [("deflation", {}, {}), ("stencil", {}, {}), ("mg", {}, {}),
+            ("stencil2", {"smoother": "cheb2"}, {"BENCH_SMOOTHER": "cheb2"}),
+            ("stencil2", {"pc2": "mg"}, {"BENCH_PC2": "mg"})]
+
+
+@pytest.mark.parametrize("preconditioner,options,env", BRANCHES,
+                         ids=["deflation", "stencil", "mg", "stencil2-cheb2", "stencil2-pc2-mg"])
+def test_branch_matches_reference(preconditioner, options, env, monkeypatch):
+    tol = 1e-5 if preconditioner == "mg" else 1e-6  # mg: the reference function's default
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    fn_j, field_j, n_j = jx_bench.build_spe10_bench(bisections=2, tol=tol,
+                                                    preconditioner=preconditioner)
+    u_j, res_j = fn_j(field_j)
+    u_j = np.asarray(u_j)
+    bench = build_spe10_bench(2, tol=tol, device="cpu", preconditioner=preconditioner, **options)
+    assert bench.num_dofs == n_j and bench.preconditioner == preconditioner
+    A, b, s = bench.assemble(bench.field)
+    sol = bench.solve(A, b, s)
+    print(f"{preconditioner} {options}: iterations {sol.iterations} ({sol.sweeps} sweeps), "
+          f"residual {sol.residual:.3e} (reference {float(res_j):.3e}), u "
+          f"{np.abs(sol.u.numpy() - u_j).max() / np.abs(u_j).max():.3e} x max apart")
+    assert sol.residual <= tol and float(res_j) <= tol
+    if preconditioner == "mg":
+        # the reference's mg branch runs in float64: its block_cg residual's dtype
+        assert A.blocks.dtype == torch.float64 and np.asarray(res_j).dtype == np.float64
+    elif preconditioner != "stencil2":
+        assert A.blocks.dtype == torch.float32
+        # the reported residual is the true one: float64, plain gather SpMV
+        A64 = block_ell_from_numpy(A.neighbors, A.blocks.double().numpy(), "cpu")
+        x = sol.u / s.double()
+        assert float((b.double() - A64.matvec(x)).norm() / b.double().norm()) <= 1.01e-6
+    np.testing.assert_allclose(sol.u.numpy(), u_j, rtol=0, atol=1e-4 * np.abs(u_j).max())
+
+
+@pytest.mark.parametrize("preconditioner", ["deflation", "stencil", "stencil2"])
+def test_fallback_routes_raise(preconditioner):
+    """The reference logs a warning and falls back (the gather route, or
+    block Jacobi) where the macro does not tile the lattice; the port
+    raises, naming the macro.  The gather route stays reachable through
+    ``refined_deflated_solve`` with a ``cell_agg`` (test_torch_deflation)."""
+    with pytest.raises(ValueError, match=r"macro \(30, 20\)"):
+        build_spe10_bench(2, device="cpu", preconditioner=preconditioner, macro=(30, 20))
+
+
+def test_switches_are_checked():
+    for kw in ({"preconditioner": "block_jacobi"}, {"smoother": "cheb2x"},
+               {"preconditioner": "deflation", "smoother": "cheb2"},
+               {"preconditioner": "stencil", "pc2": "mg"}, {"pc2": "amg"}):
+        with pytest.raises(ValueError):
+            build_spe10_bench(2, device="cpu", **kw)

@@ -54,6 +54,10 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.discretizations.tensor_cg, dune_hdd_tpu_torch.testcases.tensor\n"
         "import dune_hdd_tpu_torch.cli, dune_hdd_tpu_torch.cli.examples, dune_hdd_tpu_torch.cli.main\n"
         "from dune_hdd_tpu_torch.utils.logging import TimedLogger, create_logger\n"
+        "import dune_hdd_tpu_torch.la.deflation, dune_hdd_tpu_torch.la.multigrid\n"
+        "import dune_hdd_tpu_torch.la.stencil_multigrid, dune_hdd_tpu_torch.grid.structured_order\n"
+        "from dune_hdd_tpu_torch.convert import block_ell_from_numpy, prolongation_from_numpy\n"
+        "from dune_hdd_tpu_torch.la.stencil import chebyshev_smoother, estimate_lambda_max\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
