@@ -24,7 +24,13 @@ CG P2 / P3 / Q2, interval SWIPDG orders 1-3 and gmres; then the
 command-line entry point (every example, the ESV2007 level-6 grid through
 --solver stencil_cg, rb, both studies) and the tensor Q1 CG path: the
 manufactured-sine EOC in d = 1, 2, 3 up to 128^3 cells and the 3D
-parametric thermalblock at 2,146,689 DoF through the RB greedy.  Exits
+parametric thermalblock at 2,146,689 DoF through the RB greedy; and the
+sharded layer on 4 virtual shards of the card: the 12.29M system in 4
+x-slabs through the plane SpMV's slab mode (matvec bitwise, to a true 1e-6
+against the stencil2 solution), the native connectivity at 12.29M, the
+1.57M-DoF BlockSWIPDG [2 2] through as_sharded (per-shard assembly, the halo
+and all-gather solves), the 2 x 2 parameter sweeps and the 3-stage pipeline
+at 98,304 DoF, and the process group without an environment.  Exits
 non-zero if any phase fails or there is no card.
 
     python3 chip_smoke.py
@@ -101,6 +107,12 @@ the BSR call).
 builds the two SpMVs and runs the main path at 768k DoF, the other branches
 there, the main path at 3.07M DoF and the (200, 40) coarse space there
 (about a minute).
+
+    python3 chip_smoke.py --sharded
+
+builds the plane SpMV and runs the sharded layer's phases with the paths
+they follow (the 12.29M main path, the 1.57M online thermalblock; about
+five minutes), and the same slab solve on the assembled planes.
 """
 import copy
 import json
@@ -118,6 +130,9 @@ import torch
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "plane_spmv": ("dune_hdd_tpu_torch/csrc/plane_spmv.cu", "scripts/pallas_plane_repro.py:83"),
+    # the same kernel in its slab mode, on the sharded main path
+    "plane_spmv_slab": ("dune_hdd_tpu_torch/csrc/plane_spmv.cu",
+                        "scripts/pallas_plane_repro.py:83"),
     "structured_spmv": ("dune_hdd_tpu_torch/csrc/structured_spmv.cu",
                         "dune_hdd_tpu/la/pallas_spmv.py:32"),
     "probe": ("dune_hdd_tpu_torch/csrc/probe.cu", "scripts/pallas_minimal_repro.py:7"),
@@ -214,7 +229,7 @@ def ptxas_summary(compiler_log):
     return out
 
 
-def phase_build(names=tuple(KERNELS)):
+def phase_build(names=("plane_spmv", "structured_spmv", "probe")):
     """One nvcc per source, all started together; prints each kernel
     function's registers, static shared memory, stack and spills, and fails
     on a spill or a stack frame of plane_spmv."""
@@ -711,6 +726,340 @@ def phase_factored_bcr(dev, r_default, bisections=8):
     torch.cuda.empty_cache()
 
 
+# -- the sharded layer -------------------------------------------------------
+
+SHARDS = 4                 # virtual shards of the one card
+SHARDED_MACRO = (100, 20)  # the reference test's macro: 25 aggregate columns per slab
+SHARDED_INNER_ITERS = 600  # the reference's 150 / 6 do not reach 1e-6 at 12.29M
+SHARDED_OUTER_MAX = 20
+BLOCK_SHARDED_TOL = 1e-8   # the online thermalblock's tolerance
+SWEEP_BISECTIONS = 10      # 98,304 DoF
+PIPELINE_MUS = 6
+PIPELINE_CG_ITERS = 3000
+
+
+def rel_diff(a, b) -> float:
+    """||a - b|| / ||b||, the reference dry run's measure."""
+    return ((a - b).norm() / b.norm()).item()
+
+
+def shard_mesh(dev, mu_axis=1):
+    from dune_hdd_tpu_torch.parallel import make_device_mesh
+
+    return make_device_mesh(mu_axis, SHARDS // mu_axis, devices=[dev] * SHARDS)
+
+
+def phase_sharded_main_path(dev, r, S, B):
+    """The 12.29M-DoF main path split into SHARDS x-slabs of one card
+    (la/stencil_sharded.py) on the bench's own system (B and the operator
+    the bench solves, S's symmetrized planes: the assembled planes are
+    another operator, see ``phase_sharded_operator_gap``): the
+    slab matvec bitwise equal to the single-shard plane_spmv in float32 and
+    float64; the slab kernel against its plain version and timed beside
+    the BSR call at one slab; the two-level weighted deflation (the bench's
+    weight 1/s, macro SHARDED_MACRO) to a true 1e-6, rechecked in float64
+    with the plain SpMV, within 5e-3 of the bench's stencil2 solution
+    ``r["u"]``.  The slab launch counts are set to 0 just before the solve
+    and read just after.  Returns the kernels line's slab rows."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import (
+        SLAB_HALO, plane_spmv, plane_spmv_reference, plane_spmv_slab, plane_spmv_slab_reference)
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll
+    from dune_hdd_tpu_torch.la.stencil_sharded import ShardedStencilSystem
+
+    bench = r["bench"]
+    _, _, s = bench.assemble(r["field"])  # the scaling of (S, B): the deflation weight is 1/s
+    S = StencilBlockEll(S.matvec_planes, S.plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system = ShardedStencilSystem(S, B, shard_mesh(dev), macro=SHARDED_MACRO,
+                                  weight=(1.0 / s).to(B.dtype))
+    setup_s = time.perf_counter() - t0
+    X = torch.randn(B.shape, generator=torch.Generator(device="cpu").manual_seed(31)).to(dev)
+    rows, errs = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        Ws = [W.to(dtype) for W in system.planes]
+        Xd = X.to(dtype)
+        y = torch.cat(system._matvec_local(Ws, system._split(Xd)), dim=-1)
+        if not torch.equal(y, plane_spmv(S.planes.to(dtype), Xd, S.plan)):
+            raise AssertionError(f"{SHARDS}-slab matvec != single-shard plane_spmv ({name})")
+        W0, E0 = Ws[0], system._halo_ext(system._split(Xd))[0]
+        y0, y0_ref = plane_spmv_slab(W0, E0, S.plan), plane_spmv_slab_reference(W0, E0, S.plan)
+        errs[name] = rel_check(f"plane_spmv_slab vs plain ({name})", y0, y0_ref,
+                               {torch.float32: 1e-5, torch.float64: 1e-12}[dtype])
+        A = bsr_operator(W0, S.plan, halo=SLAB_HALO)
+        e_lib = rel_check(f"BSR library call vs plane_spmv_slab ({name})", A @ flat(E0), flat(y0),
+                          1e-4 if dtype == torch.float32 else 1e-11)
+        rows[name] = timed("plane_spmv_slab", f"12.29M slab 1/{SHARDS} {name}",
+                           lambda: plane_spmv_slab(W0, E0, S.plan),
+                           lambda: plane_spmv_slab_reference(W0, E0, S.plan), lambda: A @ flat(E0),
+                           (W0.numel() + E0.numel() + y0.numel()) * W0.element_size(),
+                           2 * W0.numel(), dtype, lattice="x".join(map(str, W0.shape[-2:])),
+                           max_abs_err=f"{errs[name]:.3e}",
+                           bitwise_equal=torch.equal(y0, y0_ref),
+                           library_max_abs_diff=f"{e_lib:.3e}")
+        del Ws, Xd, y, W0, E0, y0, y0_ref, A
+    plane_spmv_slab.launches = 0
+    plane_spmv_slab.case_launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X_sh, res = system.solve(tol=1e-6, inner_iters=SHARDED_INNER_ITERS,
+                             outer_max=SHARDED_OUTER_MAX)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(plane_spmv_slab.case_launches)
+    B64 = B.double()
+    res64 = ((B64 - plane_spmv_reference(S.planes.double(), X_sh, S.plan)).norm()
+             / B64.norm()).item()
+    X_ref = r["u"][bench.to_soa].reshape(B.shape) / s.double()
+    diff = rel_diff(X_sh, X_ref)
+    if not (float(res) <= 1e-6 and res64 <= 1.01e-6 and diff <= 5e-3
+            and launches.get("nd3_f32", 0) > 0 and launches.get("nd3_f64", 0) > 0):
+        raise AssertionError(f"sharded solve: residual {float(res):.3e}, float64 {res64:.3e}, "
+                             f"rel diff vs stencil2 {diff:.3e}, slab launches {launches}")
+    log("sharded_main_path", shards=SHARDS, slab_width=system.width,
+        macro=repr(SHARDED_MACRO), inner_iters=SHARDED_INNER_ITERS,
+        outer_max=SHARDED_OUTER_MAX, setup_seconds=f"{setup_s:.3f}", seconds=f"{seconds:.3f}",
+        inner_iterations=system.last_inner_iterations, outer_sweeps=system.last_outer_sweeps,
+        residual=f"{float(res):.3e}", residual_f64_recheck=f"{res64:.3e}",
+        rel_diff_vs_stencil2=f"{diff:.3e}", stencil2_iterations=r["inner_iterations"],
+        stencil2_seconds=f"{r['seconds']:.4f}", slab_launches=repr(launches),
+        matvec_bitwise_f32_f64=True, card=repr(card()))
+    del system, X_sh
+    torch.cuda.empty_cache()
+    return {f"plane_spmv_slab_nd3_{k}": (dict(rows[n], launches=launches[f"nd3_{k}"]), errs[n])
+            for k, n in (("f32", "float32"), ("f64", "float64"))}
+
+
+def phase_sharded_operator_gap(dev, r, S, B):
+    """The same sharded solve on the assembled planes, against the bench's
+    stencil2 solution of the symmetrized operator: how far apart the two
+    operators' 1e-6 solutions lie at this contrast (``--sharded`` only)."""
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll
+    from dune_hdd_tpu_torch.la.stencil_sharded import ShardedStencilSystem
+
+    bench = r["bench"]
+    _, _, s = bench.assemble(r["field"])
+    system = ShardedStencilSystem(StencilBlockEll(S.planes, S.plan), B, shard_mesh(dev),
+                                  macro=SHARDED_MACRO, weight=(1.0 / s).to(B.dtype))
+    X, res = system.solve(tol=1e-6, inner_iters=SHARDED_INNER_ITERS, outer_max=SHARDED_OUTER_MAX)
+    X_ref = r["u"][bench.to_soa].reshape(B.shape) / s.double()
+    log("sharded_operator_gap", operator="assembled planes", residual=f"{float(res):.3e}",
+        inner_iterations=system.last_inner_iterations,
+        rel_diff_vs_stencil2_symmetrized=f"{rel_diff(X, X_ref):.3e}", card=repr(card()))
+
+
+def same_connectivity(native, grid) -> bool:
+    """The native faces are the grid's (numbered by first touch, not
+    sorted), with the same cells, cell faces and inside orientation."""
+    faces, cell_faces, face_cells, face_local = native
+    if len(faces) != grid.num_faces:
+        return False
+    nv = grid.num_vertices
+
+    def keys(f):
+        s = np.sort(f, axis=1).astype(np.int64)
+        return s[:, 0] * nv + s[:, 1]
+
+    grid_keys = keys(grid.faces)
+    order = np.argsort(grid_keys)
+    to_grid = order[np.clip(np.searchsorted(grid_keys[order], keys(faces)), 0, len(order) - 1)]
+    nvc = grid.cells.shape[1]
+    cells = grid.cells[face_cells[:, 0]]
+    at = np.arange(len(faces))
+    return bool((grid_keys[to_grid] == keys(faces)).all()
+                and (to_grid[cell_faces] == grid.cell_faces).all()
+                and (np.sort(face_cells, axis=1) == np.sort(grid.face_cells[to_grid], axis=1)).all()
+                and (faces[:, 0] == cells[at, face_local[:, 0]]).all()
+                and (faces[:, 1] == cells[at, (face_local[:, 0] + 1) % nvc]).all())
+
+
+def phase_native_connectivity(dev, bisections=10):
+    """native.build_connectivity on the bench grid at ``bisections`` (the
+    12.29M-DoF grid's 4,096,000 cells) against the port's np.unique
+    connectivity, with both host times (and the g++ build's)."""
+    from dune_hdd_tpu_torch import native
+    from dune_hdd_tpu_torch.bench_harness import _bench_geometry
+    from dune_hdd_tpu_torch.grid.structured import _build_connectivity
+
+    grid = _bench_geometry(bisections, dev).grid
+    t0 = time.perf_counter()
+    native._load()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = native.build_connectivity(grid.cells)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build_connectivity(grid.cells, grid.cell_type)
+    numpy_s = time.perf_counter() - t0
+    if not same_connectivity(out, grid):
+        raise AssertionError("native connectivity != the grid's np.unique connectivity")
+    log("native_connectivity", cells=grid.num_cells, faces=grid.num_faces,
+        gxx_build_seconds=f"{build_s:.2f}", native_seconds=f"{native_s:.3f}",
+        numpy_unique_seconds=f"{numpy_s:.3f}", equal=True)
+
+
+def phase_process_group():
+    """initialize_distributed() in an environment that describes no process
+    group returns False, and process_info() reports one process."""
+    import os
+
+    from dune_hdd_tpu_torch.parallel import initialize_distributed, is_distributed, process_info
+
+    keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+    saved = {k: os.environ.pop(k) for k in keys if k in os.environ}
+    try:
+        engaged = initialize_distributed()
+    finally:
+        os.environ.update(saved)
+    info = process_info()
+    if engaged or is_distributed() or info["process_count"] != 1:
+        raise AssertionError(f"process group without an environment: {engaged}, {info}")
+    log("process_group", initialized=engaged, **info)
+
+
+def phase_block_sharded(dev, grid, mus, solutions):
+    """The thermalblock 2x2 BlockSWIPDG [2 2] at 1,572,864 DoF on SHARDS
+    shards, at the first of ``mus``: the per-shard assembly bitwise equal
+    to the host's; the halo layout on the contiguous row split bitwise
+    equal to the all-gather solve (as_sharded(halo=False)); the
+    subdomain-aligned halo solve and the all-gather solve within 5e-3 of
+    the single-device solve ``solutions[0]``; the halo exchange volume
+    against the all-gather volume."""
+    from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
+    from dune_hdd_tpu_torch.parallel import HaloShardedSystem, collectives, halo_exchange_spec
+    from dune_hdd_tpu_torch.problems import ThermalblockProblem
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = BlockSWIPDGDiscretization(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"},
+                                  ThermalblockProblem((2, 2)), num_partitions=(2, 2),
+                                  device=dev, only_these_products=())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mesh = shard_mesh(dev)
+    t0 = time.perf_counter()
+    host = d.as_sharded(mesh, halo=True)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_dev = d.as_sharded(mesh, halo=True, assemble_on_device=True)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(host.ell_vals[0], on_dev.ell_vals[0])):
+        raise AssertionError("per-shard assembly != host assembly")
+    del host
+    rowsplit = d.as_sharded(mesh, halo=False)
+    halo_rows = HaloShardedSystem(d.get_operator(), d.get_rhs(), mesh, dtype=d.space.dtype)
+    mu, u_ref = d.problem.parse_parameter(mus[0]), solutions[0]
+    results, iterations = {}, {}
+    for name, system in (("all_gather", rowsplit), ("halo_row_split", halo_rows),
+                         ("halo_subdomains", on_dev)):
+        before = collectives.calls.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = system.solve(mu, tol=BLOCK_SHARDED_TOL, maxiter=50000)
+        torch.cuda.synchronize()
+        results[name] = (u, time.perf_counter() - t0)
+        # one all_gather per SpMV (and one of the solution), or one
+        # ppermute per neighbour offset and SpMV
+        calls = collectives.calls - before
+        iterations[name] = (calls["all_gather"] - 1 if name == "all_gather"
+                            else calls["ppermute"] // len(system.plan.shifts))
+    u_ag, u_hr, u_hs = (results[k][0] for k in ("all_gather", "halo_row_split",
+                                                 "halo_subdomains"))
+    spec = halo_exchange_spec(on_dev)
+    gather_volume = (SHARDS - 1) * rowsplit.n_pad // SHARDS
+    diffs = {"all_gather": rel_diff(u_ag, u_ref), "halo_subdomains": rel_diff(u_hs, u_ref)}
+    if not (torch.equal(u_hr, u_ag) and max(diffs.values()) <= 5e-3
+            and spec["elements_per_spmv"] < gather_volume):
+        raise AssertionError(f"sharded block solves: row-split halo bitwise "
+                             f"{torch.equal(u_hr, u_ag)}, rel diffs {diffs}, {spec}")
+    log("block_sharded", dofs=d.space.num_dofs, shards=SHARDS, build_seconds=f"{build_s:.2f}",
+        host_values_seconds=f"{host_s:.2f}", device_assembly_seconds=f"{dev_s:.2f}",
+        assembly_bitwise=True, halo_row_split_bitwise_all_gather=True,
+        **{f"{k}_seconds": f"{v[1]:.3f}" for k, v in results.items()},
+        **{f"{k}_iterations": v for k, v in iterations.items()},
+        **{f"{k}_rel_diff_vs_single": f"{v:.3e}" for k, v in diffs.items()},
+        halo_subdomains_rel_diff_vs_all_gather=f"{rel_diff(u_hs, u_ag):.3e}",
+        halo_elements_per_spmv=spec["elements_per_spmv"], all_gather_elements=gather_volume,
+        shifts=repr(spec["shifts"]), peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        card=repr(card()))
+    del d, on_dev, rowsplit, halo_rows, results
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_sweeps_and_pipeline(dev, mus):
+    """The thermalblock 2x2 SWIPDG at SWEEP_BISECTIONS (98,304 DoF): a
+    2 x 2 (mu x domain) halo_parameter_sweep and sharded_parameter_sweep
+    over the first 4 of ``mus`` against single-device solves (all to 1e-10:
+    1e-8 relative); then the 3-stage pipeline over
+    PIPELINE_MUS of them with the ESV2007 estimators against
+    sequential_parameter_stages (the reference's 1e-5)."""
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
+    from dune_hdd_tpu_torch.parallel import (
+        HaloShardedSystem, ShardedAffineSystem, make_stage_mesh, pipeline_parameter_stages,
+        sharded_parameter_sweep)
+    from dune_hdd_tpu_torch.parallel.halo import halo_parameter_sweep
+    from dune_hdd_tpu_torch.parallel.pipeline import EstimatorStage, sequential_parameter_stages
+    from dune_hdd_tpu_torch.problems import ThermalblockProblem
+
+    grid = alu_cube_grid((0, 0), (1, 1), (4, 4), refinements=SWEEP_BISECTIONS)
+    d = SWIPDGDiscretization(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"},
+                             ThermalblockProblem((2, 2)), device=dev, only_these_products=())
+    op, rhs = d.get_operator(), d.get_rhs()
+    params = [d.problem.parse_parameter(mu) for mu in mus[:PIPELINE_MUS]]
+    th_op = torch.stack([op.with_expanded_affine_part().thetas(m) for m in params])
+    th_rhs = torch.stack([rhs.with_expanded_affine_part().thetas(m) for m in params])
+    opts = {"type": "block_cg.jacobi", "precision": 1e-10, "max_iter": 50000}
+    refs = [d.solve(mu, options=opts) for mu in mus[:4]]
+    mesh = shard_mesh(dev, mu_axis=2)
+    sweeps = {}
+    for name, system_cls, sweep in (("halo", HaloShardedSystem, halo_parameter_sweep),
+                                    ("all_gather", ShardedAffineSystem, sharded_parameter_sweep)):
+        system = system_cls(op, rhs, mesh, dtype=d.space.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U = sweep(system, th_op[:4], th_rhs[:4], tol=1e-10, maxiter=50000)
+        torch.cuda.synchronize()
+        diff = max(rel_diff(U[i, : d.space.num_dofs], refs[i]) for i in range(4))
+        sweeps[name] = (time.perf_counter() - t0, diff)
+        if not diff <= 1e-8:
+            raise AssertionError(f"{name} parameter sweep: rel diff {diff:.3e} vs single")
+    log("sharded_sweeps", dofs=d.space.num_dofs, mesh="2 mu x 2 domain", mus=4,
+        **{f"{k}_seconds": f"{v[0]:.3f}" for k, v in sweeps.items()},
+        **{f"{k}_max_rel_diff_vs_single": f"{v[1]:.3e}" for k, v in sweeps.items()},
+        card=repr(card()))
+
+    est = EstimatorStage(d.space, d.boundary_info, d.problem, params)
+    out = {}
+    for name, run in (("pipeline", lambda: pipeline_parameter_stages(
+            op, rhs, th_op, th_rhs, mesh=make_stage_mesh([dev] * 3), cg_iters=PIPELINE_CG_ITERS,
+            dtype=d.space.dtype, estimator=est)),
+                      ("sequential", lambda: sequential_parameter_stages(
+            op, rhs, th_op, th_rhs, cg_iters=PIPELINE_CG_ITERS, dtype=d.space.dtype,
+            estimator=est))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, e = run()
+        torch.cuda.synchronize()
+        out[name] = (u, e, time.perf_counter() - t0)
+    (u_pp, e_pp, s_pp), (u_seq, e_seq, s_seq) = out["pipeline"], out["sequential"]
+    u_diff = max(rel_diff(u_pp[i], u_seq[i]) for i in range(PIPELINE_MUS))
+    e_diff = rel_diff(e_pp.reshape(-1), e_seq.reshape(-1))
+    if not (u_diff <= 1e-5 and e_diff <= 1e-5 and bool((e_pp[:, 0] <= 1e-8).all())
+            and bool((e_pp[:, 2:] > 0).all())):
+        raise AssertionError(f"pipeline vs sequential: {u_diff:.3e}, estimates {e_diff:.3e}, "
+                             f"relative residuals {e_pp[:, 0].tolist()}")
+    log("pipeline", stages=3, mus=PIPELINE_MUS, dofs=d.space.num_dofs, cg_iters=PIPELINE_CG_ITERS,
+        estimators=repr(est.types), pipeline_seconds=f"{s_pp:.3f}",
+        sequential_seconds=f"{s_seq:.3f}", max_rel_diff_u=f"{u_diff:.3e}",
+        rel_diff_estimates=f"{e_diff:.3e}",
+        max_relative_residual=f"{e_pp[:, 0].max().item():.3e}",
+        estimates=repr([[round(v, 6) for v in row] for row in e_pp[:, 2:].tolist()]),
+        card=repr(card()))
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 # peak rates outside the tensor cores (NVIDIA's data sheet, H100 SXM at 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -724,20 +1073,25 @@ def bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bsr_operator(planes, plan):
+def bsr_operator(planes, plan, halo=0):
     """The plane operator as a torch.sparse BSR tensor with 3x3 blocks over
     the flat cell-major vector in (subclass, iy, ix) order, which is also the
-    structured numbering: the library yardstick of both SpMV kernels (timed
-    here, used nowhere in the port)."""
+    structured numbering: the library yardstick of the SpMV kernels (timed
+    here, used nowhere in the port).  ``halo``: the slab mode's, whose
+    columns are those of X_ext [.., KY, KX + 2 halo], with no x-wrap."""
     _, nd, _, _, KY, KX = planes.shape
-    L, dev = KY * KX, planes.device
-    nc = 8 * L
+    We, dev = KX + 2 * halo, planes.device
+    nc = 8 * KY * KX
     iy = torch.arange(KY, device=dev)[:, None]
     ix = torch.arange(KX, device=dev)[None, :]
-    cols = [torch.arange(nc, device=dev).reshape(8, KY, KX)]
+
+    def col(ks, dy, dx):
+        x = ix + dx + halo if halo else (ix + dx) % KX
+        return ks * KY * We + ((iy + dy) % KY) * We + x
+
+    cols = [torch.stack([col(k, 0, 0) for k in range(8)])]
     for s in range(3):
-        cols.append(torch.stack([ks * L + ((iy + dy) % KY) * KX + (ix + dx) % KX
-                                 for ks, dy, dx in (plan[k][s] for k in range(8))]))
+        cols.append(torch.stack([col(*plan[k][s]) for k in range(8)]))
     cols, order = torch.sort(torch.stack(cols, dim=-1).reshape(nc, 4), dim=1)
     if not bool((cols[:, 1:] != cols[:, :-1]).all()):
         raise AssertionError("two slots of one cell share a neighbour")
@@ -745,7 +1099,7 @@ def bsr_operator(planes, plan):
     vals = torch.gather(vals, 1, order[:, :, None, None].expand(-1, -1, nd, nd))
     crow = torch.arange(0, 4 * nc + 1, 4, device=dev)
     return torch.sparse_bsr_tensor(crow, cols.reshape(-1), vals.reshape(-1, nd, nd).contiguous(),
-                                   size=(nc * nd, nc * nd), check_invariants=False)
+                                   size=(nc * nd, 8 * KY * We * nd), check_invariants=False)
 
 
 def time_calls(fn, calls=100):
@@ -988,7 +1342,8 @@ def phase_esv2007_study(dev):
     estimators, efficiency), EOC above 1.9 (L2) and 0.95 (H1_semi, eta_NC,
     eta_DF, eta_ESV2007) up to the last level; RT0 local conservation at
     level 6.  The launch count is set to 0 just before and read just after.
-    Returns (launches, the kernel's max abs error at level 6, the test case)."""
+    Returns (launches, the kernel's max abs error at level 6, the test case,
+    the solutions per level)."""
     from types import SimpleNamespace
 
     from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
@@ -1062,7 +1417,7 @@ def phase_esv2007_study(dev):
         rt0_conservation_max_rel_dev=f"{conservation:.3e}",
         rt0_reconstruction_seconds=f"{rt0_seconds:.3f}",
         plane_spmv_f64_max_abs_err=f"{err:.3e}", card=repr(card()))
-    return launches, err, tc
+    return launches, err, tc, list(study.solutions)
 
 
 def phase_esv2007_cg(dev, tc):
@@ -1102,44 +1457,33 @@ def partitioning(part) -> str:
     return f"[{part[0]} {part[1]} 1]"
 
 
-def phase_block_esv2007_table(dev, tc):
+def phase_block_esv2007_table(dev, tc, solutions):
     """BlockSWIPDG on the ESV2007 hierarchy (``tc``'s levels): the
-    partitionings [1 1 1], [2 2 1], [4 4 1] and [8 8 1] at levels 0-3, each
-    level's global system solved by stencil_cg (plane_spmv in float64, the
-    4x4 macro, 1e-12) and the OS2014 estimators and eff_OS2014 held to the
-    published block table (6e-3).  The block solve is the global SWIPDG
-    solve, which the partitioning does not enter: each level is solved once,
-    through the first partitioning, and the others reuse that solution.
+    partitionings [1 1 1], [2 2 1], [4 4 1] and [8 8 1] at levels 0-3, and
+    the OS2014 estimators and eff_OS2014 held to the published block table
+    (6e-3).  The block solve is the global SWIPDG solve, which the
+    partitioning does not enter: ``solutions`` are the ESV2007 study's
+    (stencil_cg, plane_spmv in float64, the 4x4 macro, 1e-12: the options a
+    block solve takes), one per level, and every partitioning reuses them.
     Then [8 8 1] at levels 4 to the last, with EOC(eta_OS2014) >= 0.95
-    from level 3 on and eff_OS2014 within 1e-2 of 1.80.  The launch count is
-    set to 0 just before and read just after.  Returns (launches, the
-    kernel's max abs error on the last level's operator)."""
+    from level 3 on and eff_OS2014 within 1e-2 of 1.80.  Returns (0, the
+    kernel's max abs error on the last level's operator): the solves, and
+    their launches, are the study's."""
     from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
     from dune_hdd_tpu_torch.estimators.block_swipdg import BlockSWIPDGEstimators
     from dune_hdd_tpu_torch.ops.norms import error_norms
     from dune_hdd_tpu_torch.studies import eoc_rates, expected_results
 
-    max_iter = 50000
-    options = {"type": "stencil_cg", "precision": 1e-12, "max_iter": max_iter, "macro": (4, 4)}
     torch.cuda.reset_peak_memory_stats()
-    start_path()
     t_phase = time.perf_counter()
 
-    def build_and_solve(grid, part, u=None):
+    def build(level, part):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        d = BlockSWIPDGDiscretization(grid, tc.boundary_info(), tc.problem, num_partitions=part,
-                                      device=dev)
+        d = BlockSWIPDGDiscretization(tc.level_grid(level), tc.boundary_info(), tc.problem,
+                                      num_partitions=part, device=dev)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        info = {}
-        if u is None:
-            u = d.solve(options=options)
-            torch.cuda.synchronize()
-            info = d.last_solve_info
-            if not (info["type"] == "stencil_cg" and 0 < info["iterations"] < max_iter):
-                raise AssertionError(f"{partitioning(part)} level grid {grid}: {info}")
-        return d, u, dict(info, assembly_seconds=t1 - t0, solve_seconds=time.perf_counter() - t1)
+        return d, solutions[level], {"assembly_seconds": time.perf_counter() - t0}
 
     def estimates(d, u):
         torch.cuda.synchronize()
@@ -1154,15 +1498,13 @@ def phase_block_esv2007_table(dev, tc):
     def log_level(part, level, d, vals, seconds, info):
         log("block_esv2007_level", partitioning=repr(partitioning(part)), level=level,
             dofs=d.space.num_dofs, subdomains=d.num_subdomains(),
-            **{k: f"{v:.6e}" for k, v in vals.items()}, iterations=info.get("iterations", "reused"),
-            assembly_seconds=f"{info['assembly_seconds']:.3f}",
-            solve_seconds=f"{info['solve_seconds']:.3f}", estimator_seconds=f"{seconds:.3f}")
+            **{k: f"{v:.6e}" for k, v in vals.items()}, solution="esv2007_study",
+            assembly_seconds=f"{info['assembly_seconds']:.3f}", estimator_seconds=f"{seconds:.3f}")
 
     table = {}
     for level in range(BLOCK_TABLE_LEVELS):
-        grid, u = tc.level_grid(level), None
         for part in BLOCK_PARTITIONS:
-            d, u, info = build_and_solve(grid, part, u)
+            d, u, info = build(level, part)
             vals, seconds = estimates(d, u)
             table[part, level] = vals
             log_level(part, level, d, vals, seconds, info)
@@ -1176,29 +1518,26 @@ def phase_block_esv2007_table(dev, tc):
 
     deep = (8, 8)
     for level in range(BLOCK_TABLE_LEVELS, tc.num_refinements + 1):
-        d, u, info = build_and_solve(tc.level_grid(level), deep)
+        d, u, info = build(level, deep)
         vals, seconds = estimates(d, u)
         table[deep, level] = vals
         log_level(deep, level, d, vals, seconds, info)
         del u
-    launches = end_path()
     levels = range(BLOCK_TABLE_LEVELS - 1, tc.num_refinements + 1)
     eoc = eoc_rates([table[deep, level]["eta_OS2014"] for level in levels])
     eff = [table[deep, level]["eff_OS2014"] for level in levels]
     if not (min(eoc) >= 0.95 and max(abs(e - 1.80) for e in eff) <= 1e-2):
         raise AssertionError(f"[8 8 1]: EOC(eta_OS2014) {eoc}, eff_OS2014 {eff}")
-    if launches <= 0:
-        raise AssertionError("the block study did not launch plane_spmv")
     err = check_plane_spmv_at(d._global.stencil_system(), f"block ESV2007 level {level} [8 8 1]")
     log("block_esv2007_table", table_levels=f"0-{BLOCK_TABLE_LEVELS - 1} ok (6e-3)",
         partitionings=repr([partitioning(p) for p in BLOCK_PARTITIONS]),
         deep=f"[8 8 1] levels {BLOCK_TABLE_LEVELS}-{tc.num_refinements}",
         eoc_eta_OS2014=repr([round(e, 4) for e in eoc]),
-        eff_OS2014=repr([round(e, 4) for e in eff]), launches=launches,
+        eff_OS2014=repr([round(e, 4) for e in eff]), solves="esv2007_study",
         plane_spmv_f64_max_abs_err=f"{err:.3e}",
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         seconds=f"{time.perf_counter() - t_phase:.2f}", card=repr(card()))
-    return launches, err
+    return 0, err
 
 
 OS2014_TRIPLES = ((0.1, 0.1, 0.1), (1.0, 1.0, 0.1), (0.1, 0.1, 1.0), (1.0, 1.0, 1.0))
@@ -2598,6 +2937,7 @@ def main():
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    phase_process_group()
     bench6, S6, B6, plane_err = phase_plane_vs_plain(dev)
     phase_plane_random(dev)
     A6, b6, structured_err = phase_structured_vs_plain(dev, bench6, S6, B6)
@@ -2622,18 +2962,21 @@ def main():
     torch.cuda.empty_cache()
 
     r, (S10, B10), _ = phase_main_path(dev, 10, repeats=3)
+    slab_rows = phase_sharded_main_path(dev, r, S10, B10)
     del r
     plane_times, err = time_plane_spmv(S10, B10, "12.29M symmetric", W=S10.sym_planes)
     plane_err = max(plane_err, err)
     del S10, B10
+    phase_native_connectivity(dev)
     _bench_geometry.cache_clear()  # the 12.29M set-up: no later path uses it
     torch.cuda.empty_cache()
 
-    _, err, tc = phase_esv2007_study(dev)
+    _, err, tc, esv_solutions = phase_esv2007_study(dev)
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
     phase_esv2007_cg(dev, tc)
-    _, err = phase_block_esv2007_table(dev, tc)
+    _, err = phase_block_esv2007_table(dev, tc, esv_solutions)
+    del esv_solutions
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
     higher_rows = {}
@@ -2660,6 +3003,8 @@ def main():
     _, err, thermalblock, lattice_256_row = phase_thermalblock_online(dev)
     plane_err = max(plane_err, err)
     torch.cuda.empty_cache()
+    phase_block_sharded(dev, *thermalblock)
+    phase_sharded_sweeps_and_pipeline(dev, thermalblock[1])
     phase_rb_thermalblock(dev, *thermalblock)
     del thermalblock
     torch.cuda.empty_cache()
@@ -2681,7 +3026,7 @@ def main():
             "structured_spmv": (dict(structured_ms, launches=launches["structured_spmv"]),
                                 structured_err),
             "probe": (dict(probe_ms, launches=launches["probe"]), probe_err),
-            **higher_rows}
+            **higher_rows, **slab_rows}
     for name, (row, _) in rows.items():
         if not row["launches"] > 0:
             raise AssertionError(f"{name}: no launch on its path")
@@ -2693,6 +3038,27 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def main_sharded():
+    """``--sharded``: build the plane SpMV and run the sharded layer's phases
+    with the paths they follow (the 12.29M main path, one timed call; the
+    1.57M thermalblock's online solves), then the process group and the
+    native connectivity."""
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(("plane_spmv",))
+    phase_process_group()
+    r, (S10, B10), _ = phase_main_path(dev, 10, repeats=1)
+    phase_sharded_main_path(dev, r, S10, B10)
+    phase_sharded_operator_gap(dev, r, S10, B10)
+    del r, S10, B10
+    phase_native_connectivity(dev)
+    torch.cuda.empty_cache()
+    _, _, thermalblock, _ = phase_thermalblock_online(dev, count=PIPELINE_MUS)
+    phase_block_sharded(dev, *thermalblock)
+    phase_sharded_sweeps_and_pipeline(dev, thermalblock[1])
+    print(card())
 
 
 def main_plane_rows():
@@ -2724,5 +3090,7 @@ if __name__ == "__main__":
         main_plane_rows()
     elif "--alt-solvers" in sys.argv:
         main_alt_solvers()
+    elif "--sharded" in sys.argv:
+        main_sharded()
     else:
         main()

@@ -44,7 +44,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import highest_precision, resolve_device
 from .discretizations.block_swipdg import BlockSWIPDGDiscretization
 from .functions.base import (
     ConstantFunction,
@@ -178,12 +178,7 @@ class Spe10Bench(NamedTuple):
     preconditioner: str  # the branch
 
 
-def _highest_precision() -> None:
-    """Full float32 products everywhere: TF32 assembles an asymmetric
-    operator (~1e-3 relative), which breaks CG."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+_highest_precision = highest_precision
 
 
 class _BenchGeometry(NamedTuple):

@@ -9,6 +9,14 @@
 // or 10 (DG P1, P2, P3 on triangles).  This is StencilBlockEll.matvec of
 // the reference package (dune_hdd_tpu/la/stencil.py:190-207).
 //
+// Slab mode (PlaneGeometry.xwrap = 0): the x-slab matvec of the sharded
+// solver (dune_hdd_tpu/la/stencil_sharded.py:77-117).  W and Y are one slab
+// [.., KY, KX] of a wider lattice and X arrives as [ND, 8, KY, xrow] with
+// its neighbours' columns attached (xrow = KX + 4, the slab at column xcol
+// = 2): x is not wrapped, X_{s+1} reads column x + dx + xcol.  y still
+// wraps.  The arithmetic is the same, so a slab's Y is bitwise the
+// unsliced kernel's Y on those columns.
+//
 // Replaces the two TPU kernels of the same SpMV, which take any ND:
 //   * dune_hdd_tpu/la/pallas_spmv.py:32 build_structured_pallas_matvec
 //     (flat-modulo wrap; agrees wherever the wrapped blocks are zero, which
@@ -102,6 +110,9 @@ struct PlaneGeometry {
   int stages;          // ring stages
   int grid_x, grid_y;  // tiles along x and y
   int smem_bytes;      // dynamic shared memory
+  int xrow;            // X's row stride: KX, or KX + 4 in slab mode
+  int xcol;            // column of X's site x = 0: 0, or 2 in slab mode
+  int xwrap;           // 1: x wraps modulo KX; 0: slab mode (X holds the halo)
   int xoff[8][4];      // per (k, s): source of tile site (0, 0) in one staged X plane
 };
 
@@ -231,15 +242,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   // carried from one stride of kConsumers to the next.
   for (int r = tid; r < g.BY; r += kConsumers) {
     const int v = (y0 - g.hy + r) % g.KY;
-    rowtab[r] = (v < 0 ? v + g.KY : v) * g.KX;
+    rowtab[r] = (v < 0 ? v + g.KY : v) * g.xrow;
   }
   for (int c = tid; c < g.BX; c += kConsumers) {
-    const int v = (x0 - g.hx + c) % g.KX;
-    coltab[c] = v < 0 ? v + g.KX : v;
+    if (g.xwrap) {
+      const int v = (x0 - g.hx + c) % g.KX;
+      coltab[c] = v < 0 ? v + g.KX : v;
+    } else {  // columns past the slab feed only sites that are not stored
+      coltab[c] = min(max(x0 - g.hx + c + g.xcol, 0), g.xrow - 1);
+    }
   }
   consumers_sync();
   {
-    const long long L = (long long)g.KY * g.KX;
+    const long long L = (long long)g.KY * g.xrow;
     const int total = ND * box;
     const int dc = kConsumers % g.BX, drq = kConsumers / g.BX;
     const int dr = drq % g.BY, dq = drq / g.BY;
@@ -349,7 +364,9 @@ int launch(const void* W, const void* X, void* Y, const PlaneGeometry* g, int de
                          8LL * ND * g->BY * g->BX * sizeof(T) + 4LL * (g->BY + g->BX);
   if (g->TY * g->TX != C::kSites || g->TX != (1 << g->lx) || g->stages < 2 ||
       g->stages > kMaxStages || g->smem_bytes < need || g->KX % 4 != 0 ||
-      g->grid_x * g->TX < g->KX || g->grid_y * g->TY < g->KY) {
+      g->grid_x * g->TX < g->KX || g->grid_y * g->TY < g->KY ||
+      (g->xwrap ? g->xrow != g->KX || g->xcol != 0
+                : g->xcol < g->hx || g->xrow < g->KX + g->xcol + (g->BX - g->TX - g->hx))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);

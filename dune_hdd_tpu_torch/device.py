@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "highest_precision"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -12,3 +12,11 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def highest_precision() -> None:
+    """Full float32 products everywhere: TF32 assembles an asymmetric
+    operator (~1e-3 relative), which breaks CG."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

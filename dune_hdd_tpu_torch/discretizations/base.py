@@ -4,8 +4,8 @@ Counterpart of ``dune_hdd_tpu/discretizations/base.py``: AffineDecompositions
 of SparseMatrix (operator, named products) and of vectors (rhs, named
 vectors) on the space's device; ``solve`` freezes at mu and applies a solver
 from the registry, memoized by (mu, solver options).  A purely-Neumann
-system pins DoF 0 and subtracts the mean.  (``visualize`` waits for
-``utils/vtk.py``, ROADMAP queue 1 slice 6.)
+system pins DoF 0 and subtracts the mean.  ``visualize`` writes VTU through
+``utils/vtk.py``.
 """
 from __future__ import annotations
 

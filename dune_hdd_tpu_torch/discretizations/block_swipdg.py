@@ -19,9 +19,10 @@ included), while the LRBMS surface exposes the decomposition:
 * ``get_oversampled_discretization`` and ``solve_for_local_correction``
   (online enrichment on a BFS-grown patch).
 
-Per-subdomain payloads are built lazily on ``device`` and cached.  The
-sharded layout (``as_sharded``, ``subdomain_row_blocks``) belongs to the
-parallel slice and raises ``NotImplementedError``.
+Per-subdomain payloads are built lazily on ``device`` and cached.
+``as_sharded`` lays the affine system out on a device mesh, the subdomains
+becoming the mesh's "domain" axis (``parallel/halo.py``,
+``parallel/sharded.py``, ``parallel/sharded_assembly.py``).
 """
 from __future__ import annotations
 
@@ -48,8 +49,6 @@ from .swipdg import SWIPDGDiscretization
 
 __all__ = ["BlockSWIPDGDiscretization", "CouplingOperator"]
 
-SHARDED_NOT_PORTED = ("{what} is not ported yet (ROADMAP queue 1, slice 5: the sharded layout "
-                      "of the block discretization)")
 _BLOCKS = ("in_in", "in_out", "out_in", "out_out")
 
 
@@ -301,11 +300,63 @@ class BlockSWIPDGDiscretization(StationaryDiscretization):
             self._oversampled[key] = disc
         return self._oversampled[key]
 
-    def as_sharded(self, *args, **kwargs):
-        raise NotImplementedError(SHARDED_NOT_PORTED.format(what="as_sharded"))
+    def as_sharded(self, mesh=None, dtype=None, halo: bool = True,
+                   assemble_on_device: bool = False):
+        """The affine system on a device mesh (default: every visible card),
+        the subdomain axis becoming the mesh's "domain" axis.
+
+        With ``halo=True`` (default) shards own whole subdomains and the SpMV
+        exchanges only coupling-face DoFs by ppermute rings
+        (``parallel/halo.py``, the sharded image of the coupling blocks,
+        block-swipdg.hh:308-326); ``halo=False`` gives the row-split
+        all-gather layout (``parallel/sharded.py``).  ``assemble_on_device``:
+        each shard assembles its rows' operator values
+        (``parallel/sharded_assembly.py``) instead of slicing the host
+        assembly's."""
+        from ..parallel.halo import HaloShardedSystem
+        from ..parallel.sharded import ShardedAffineSystem, make_device_mesh
+
+        if mesh is None:
+            mesh = make_device_mesh()
+        dtype = dtype or self.space.dtype
+        if not halo:
+            return ShardedAffineSystem(self.get_operator(), self.get_rhs(), mesh, dtype=dtype)
+        row_blocks = self.subdomain_row_blocks(mesh.shape["domain"])
+        ell_override = None
+        if assemble_on_device:
+            from ..parallel.sharded_assembly import sharded_operator_values
+
+            ell_override = sharded_operator_values(self._global, mesh, row_blocks, dtype=dtype)
+        return HaloShardedSystem(self.get_operator(), self.get_rhs(), mesh,
+                                 row_blocks=row_blocks, dtype=dtype,
+                                 ell_vals_override=ell_override)
 
     def subdomain_row_blocks(self, n_devices: int):
-        raise NotImplementedError(SHARDED_NOT_PORTED.format(what="subdomain_row_blocks"))
+        """Global DoF rows in ``n_devices`` blocks of whole subdomains
+        (balanced by DoF count, contiguous in subdomain id so neighbouring
+        subdomains share a shard where they can); with more shards than
+        subdomains, the subdomain-ordered DoFs split further."""
+        S = self.num_subdomains()
+        if n_devices <= S:
+            sizes = np.asarray([len(self._local_dof_map(ss)) for ss in range(S)], dtype=np.int64)
+            csum = np.cumsum(sizes)
+            total = int(csum[-1])
+            # subdomain ss -> shard floor(csum_mid / (total / n_devices)),
+            # then repaired so every shard gets at least one subdomain
+            bounds = np.searchsorted(csum - sizes // 2,
+                                     np.arange(1, n_devices) * total / n_devices)
+            bounds = np.clip(bounds, 1, S - 1)
+            for i in range(1, len(bounds)):  # strictly increasing
+                bounds[i] = max(bounds[i], bounds[i - 1] + 1)
+            # the forward repair can push bounds past S - 1 for skewed sizes
+            # (e.g. [1, ..., 1, 1000]); clamp from the top so every trailing
+            # shard keeps at least one subdomain
+            for i in range(len(bounds) - 1, -1, -1):
+                bounds[i] = min(bounds[i], S - (len(bounds) - i))
+            groups = np.split(np.arange(S), bounds)
+            return [np.concatenate([self._local_dof_map(ss) for ss in g]) for g in groups]
+        ordered = np.concatenate([self._local_dof_map(ss) for ss in range(S)])
+        return [np.asarray(c) for c in np.array_split(ordered, n_devices)]
 
     def solve_for_local_correction(self, local_vectors, subdomain: int, mu=None,
                                    options=None) -> torch.Tensor:

@@ -169,8 +169,12 @@ class SWIPDGDiscretization(StationaryDiscretization):
         # -- operator: per diffusion pair, volume + face blocks.
         # scheme="penalty_mu": parametric components carry flux terms only,
         # the penalty goes once into the affine part (created if missing)
+        # the kernel of each operator component (lam, kap, face options,
+        # volume terms or not), in with_expanded_affine_part order: what a
+        # per-shard assembly (parallel/sharded_assembly.py) evaluates again
         operator = AffineDecomposition()
         pairs = diffusion_pairs(problem)
+        comp_kernels, affine_kernel = [], None
         with timed("swipdg.assemble_operator", sync=device):
             for (lam_fn, kap_fn), coef in _parts(pairs):
                 vol = elliptic_cell_matrices(space, lam_fn, kap_fn)
@@ -181,15 +185,20 @@ class SWIPDGDiscretization(StationaryDiscretization):
                                    flux_only=(coef is not None))
                 ib, bb = swipdg_face_blocks(space, lam_fn, kap_fn, interior, dirichlet, **face_kw)
                 mat = assemble_swipdg_matrix(space, vol, ib, bb, pattern)
+                kernel = dict(lam_fn=lam_fn, kap_fn=kap_fn, face_kw=face_kw, volume=True)
                 if coef is None:
                     operator.register_affine_part(mat)
+                    affine_kernel = kernel
                 else:
                     operator.register_component(mat, coef)
+                    comp_kernels.append(kernel)
             if scheme == "penalty_mu" and operator.affine_part is None:
-                ibp, bbp = swipdg_face_blocks(space, wlam, wkap, interior, dirichlet,
-                                              penalty_only=True, **sigmas)
+                face_kw = dict(sigmas, penalty_only=True)
+                ibp, bbp = swipdg_face_blocks(space, wlam, wkap, interior, dirichlet, **face_kw)
                 operator.register_affine_part(
                     assemble_swipdg_matrix(space, zero_vol, ibp, bbp, pattern))
+                affine_kernel = dict(lam_fn=wlam, kap_fn=wkap, face_kw=face_kw, volume=False)
+        self._operator_kernels = comp_kernels + ([affine_kernel] if affine_kernel else [])
 
         # -- rhs ------------------------------------------------------------
         rhs = AffineDecomposition()

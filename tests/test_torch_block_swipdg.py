@@ -268,7 +268,22 @@ def test_missing_subgrid_face_raises_value_error():
 
 
 def test_sharded_layout_not_ported():
-    _, d = _pair("esv2007", None, (2, 2))
-    for call in (lambda: d.as_sharded(), lambda: d.subdomain_row_blocks(2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 5"):
-            call()
+    """The sharded layout, once a raise here, is ported: the subdomain row
+    blocks and the halo system's exchange plan and values equal the
+    reference's, and the row-split layout pads as it does."""
+    from dune_hdd_tpu.parallel import make_device_mesh as j_mesh
+    from dune_hdd_tpu_torch.parallel import make_device_mesh
+
+    jd, d = _pair("esv2007", None, (2, 2))
+    for n in (2, 4, 8):
+        for a, b in zip(d.subdomain_row_blocks(n), jd.subdomain_row_blocks(n)):
+            np.testing.assert_array_equal(a, b)
+    mesh = make_device_mesh(1, 4, devices=["cpu"] * 4)
+    system = d.as_sharded(mesh, dtype=torch.float64)
+    ref = jd.as_sharded(j_mesh(1, 4, devices=jax.devices()[:4]), dtype=jnp.float64)
+    np.testing.assert_array_equal(system.plan.cols_ext, ref.plan.cols_ext)
+    assert system.plan.shifts == ref.plan.shifts
+    _close(torch.stack(system.ell_vals[0], dim=1).numpy(), np.asarray(ref.ell_vals))
+    rowsplit = d.as_sharded(mesh, dtype=torch.float64, halo=False)
+    assert rowsplit.n_pad == jd.as_sharded(j_mesh(1, 4, devices=jax.devices()[:4]),
+                                           dtype=jnp.float64, halo=False).n_pad

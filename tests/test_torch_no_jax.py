@@ -58,6 +58,12 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.la.stencil_multigrid, dune_hdd_tpu_torch.grid.structured_order\n"
         "from dune_hdd_tpu_torch.convert import block_ell_from_numpy, prolongation_from_numpy\n"
         "from dune_hdd_tpu_torch.la.stencil import chebyshev_smoother, estimate_lambda_max\n"
+        "import dune_hdd_tpu_torch.parallel, dune_hdd_tpu_torch.parallel.collectives\n"
+        "import dune_hdd_tpu_torch.parallel.distributed, dune_hdd_tpu_torch.parallel.sharded\n"
+        "import dune_hdd_tpu_torch.parallel.halo, dune_hdd_tpu_torch.parallel.sharded_assembly\n"
+        "import dune_hdd_tpu_torch.parallel.pipeline, dune_hdd_tpu_torch.la.stencil_sharded\n"
+        "import dune_hdd_tpu_torch.native\n"
+        "from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_slab\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
