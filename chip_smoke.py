@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: builds the three CUDA
+"""Smoke test of the PyTorch port on one NVIDIA GPU: builds the four CUDA
 kernels, checks each against its plain PyTorch version, drives the SPE10
 SWIPDG assemble-and-solve bench at 768k, 3.07M and 12.29M DoF (6, 8 and 10
-bisections) through the plane SpMV kernel, drives the structured SpMV and
+bisections) through the plane SpMV kernel (from 3.07M on its half-storage
+symmetric form, ``sym_plane_spmv``), runs ``stencil2_roofline`` at 3.07M
+DoF and ``python -m dune_hdd_tpu_torch.bench`` at 768k in a process of its
+own, drives the structured SpMV and
 the probe through their own entry points, times every kernel beside its
 plain version and one library call that computes the same function, then
 runs the bench's other branches at 768k DoF (two-level deflation on the
@@ -30,8 +33,9 @@ x-slabs through the plane SpMV's slab mode (matvec bitwise, to a true 1e-6
 against the stencil2 solution), the native connectivity at 12.29M, the
 1.57M-DoF BlockSWIPDG [2 2] through as_sharded (per-shard assembly, the halo
 and all-gather solves), the 2 x 2 parameter sweeps and the 3-stage pipeline
-at 98,304 DoF, and the process group without an environment.  Exits
-non-zero if any phase fails or there is no card.
+at 98,304 DoF, and the process group without an environment; last the RB
+demo (``examples/thermalblock_rb_demo``) at its defaults.  Exits non-zero
+if any phase fails or there is no card.
 
     python3 chip_smoke.py
 
@@ -39,7 +43,8 @@ Phases (one line of output each, each with its seconds): device, build
 (registers, shared memory and spills per kernel function; the plane SpMV's
 tile, ring and dynamic shared memory per instantiation), kernel vs plain
 (plane SpMV at 6 and 2 bisections, and bitwise at every nd and dtype on
-random planes with nonzero wrapped blocks; structured SpMV on the
+random planes with nonzero wrapped blocks; the half-storage SpMV bitwise at
+every nd and dtype on random planes under the bench's plan; structured SpMV on the
 768k-DoF operator and on random blocks; probe bitwise at three sizes and on
 offset views, both of its paths), main path at 6 bisections, the other
 branches from one block-ELL assembly of the bench field (deflation three
@@ -50,12 +55,16 @@ against its twin on the plain SpMVs; every solve to a true 1e-6 rechecked
 in float64, mg's block CG to 1e-5), structured path (a power iteration),
 probe path, kernel path vs plain path at 4 bisections, kernel timing at
 768k DoF (the probe at [64, 128] and 2^24, and its scalar path), main
-path at 8 bisections with the symmetric operator's checks, the same size
+path at 8 bisections with the symmetric operator's checks (the
+half-storage kernel bitwise its plain version in f32 and f64, within 1e-6 /
+1e-14 x max of plane_spmv on the materialized symmetric planes, timed), the
+roofline, the same size
 with macro (200, 40) (the factored BCR from the coarse bands, to a true
 1e-6; then the factored solve of its dense E against torch.linalg.solve in
-float64), main path at 10
-bisections with the plane SpMV checked against its plain version and timed
-on the symmetric 12.29M-DoF planes, the ESV2007 study (stencil_cg with the
+float64), the bench entry point, main path at 10
+bisections with the half-storage kernel and the plane SpMV (on the
+materialized symmetric planes) checked against their plain versions and
+timed, the ESV2007 study (stencil_cg with the
 4x4 macro and the six ESV2007 estimators: the table of errors, estimates
 and efficiencies at levels 0-3, EOC at 4-6, RT0 local conservation at level
 6), the CG study (Jacobi CG, EOC from level 2 on), the block ESV2007 table
@@ -92,9 +101,10 @@ with the Riesz-estimator greedy, its certification and the batched online
 sweep; the 2D TensorCG batched-online cases.  Then the plane SpMV's launches per
 instantiation and lattice with each one's share, a JSON line of the kernels
 (one row per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, one
-for its (256, 256) f64 lattice, and one per structured_spmv nd; the nd-3
-row's launches are the deflation branch's), the card's
-name and power limit, and last {"ok": true, ...}.
+for its (256, 256) f64 lattice, one per structured_spmv nd, the nd-3 row's
+launches the deflation branch's, and sym_plane_spmv at nd 3 in f32 and f64
+at 12.29M DoF), the card's name and power limit, and last
+{"ok": true, ...}.
 
     python3 chip_smoke.py --plane-rows [--library]
 
@@ -113,10 +123,17 @@ there, the main path at 3.07M DoF and the (200, 40) coarse space there
 builds the plane SpMV and runs the sharded layer's phases with the paths
 they follow (the 12.29M main path, the 1.57M online thermalblock; about
 five minutes), and the same slab solve on the assembled planes.
+
+    python3 chip_smoke.py --symmetric
+
+builds both plane SpMVs and runs the half-storage kernel's phases with the
+paths they follow (the 3.07M and 12.29M main paths, the roofline, the bench
+entry point, the 12.29M timing and sharded solve, the RB demo).
 """
 import copy
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -136,33 +153,55 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "structured_spmv": ("dune_hdd_tpu_torch/csrc/structured_spmv.cu",
                         "dune_hdd_tpu/la/pallas_spmv.py:32"),
     "probe": ("dune_hdd_tpu_torch/csrc/probe.cu", "scripts/pallas_minimal_repro.py:7"),
+    # not a Pallas kernel: the reference's XLA half-storage symmetric matvec
+    "sym_plane_spmv": ("dune_hdd_tpu_torch/csrc/sym_plane_spmv.cu",
+                       "dune_hdd_tpu/la/stencil.py:227"),
 }
 _T0 = time.perf_counter()
 _LAST = [_T0]
-# plane_spmv launches on the paths driven, by instantiation ("nd3_f32", ...)
-# and by instantiation and lattice ("nd3_f64 256x256", ...)
+# plane_spmv and sym_plane_spmv launches on the paths driven, by
+# instantiation ("nd3_f32", ...) and by instantiation and lattice
+# ("nd3_f64 256x256", ...)
 PATH_LAUNCHES = Counter()
 PATH_LATTICE_LAUNCHES = Counter()
+SYM_PATH_LAUNCHES = Counter()
+SYM_PATH_LATTICE_LAUNCHES = Counter()
+
+
+def _path_kernels():
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv
+
+    return ((plane_spmv, PATH_LAUNCHES, PATH_LATTICE_LAUNCHES),
+            (sym_plane_spmv, SYM_PATH_LAUNCHES, SYM_PATH_LATTICE_LAUNCHES))
 
 
 def start_path():
-    """Sets plane_spmv's launch counts to 0 just before a path is driven."""
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
-
-    plane_spmv.launches = 0
-    plane_spmv.case_launches.clear()
-    plane_spmv.lattice_launches.clear()
+    """Sets the plane SpMVs' launch counts to 0 just before a path is driven."""
+    for kernel, _, _ in _path_kernels():
+        kernel.launches = 0
+        kernel.case_launches.clear()
+        kernel.lattice_launches.clear()
 
 
 def end_path() -> int:
-    """Reads plane_spmv's launch counts just after a path, adds them to
-    PATH_LAUNCHES by instantiation and to PATH_LATTICE_LAUNCHES by
-    instantiation and lattice, and returns their sum."""
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    """Reads the plane SpMVs' launch counts just after a path, adds them to
+    (SYM_)PATH_LAUNCHES by instantiation and to (SYM_)PATH_LATTICE_LAUNCHES
+    by instantiation and lattice, and returns their sum (the path's plane
+    matvecs, full or half-storage)."""
+    total = 0
+    for kernel, cases, lattices in _path_kernels():
+        cases.update(kernel.case_launches)
+        lattices.update(kernel.lattice_launches)
+        total += kernel.launches
+    return total
 
-    PATH_LAUNCHES.update(plane_spmv.case_launches)
-    PATH_LATTICE_LAUNCHES.update(plane_spmv.lattice_launches)
-    return plane_spmv.launches
+
+def sym_launches() -> int:
+    """sym_plane_spmv's launches since the last ``start_path``."""
+    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv
+
+    return sym_plane_spmv.launches
 
 
 def log(phase, **fields):
@@ -229,10 +268,10 @@ def ptxas_summary(compiler_log):
     return out
 
 
-def phase_build(names=("plane_spmv", "structured_spmv", "probe")):
+def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv")):
     """One nvcc per source, all started together; prints each kernel
     function's registers, static shared memory, stack and spills, and fails
-    on a spill or a stack frame of plane_spmv."""
+    on a spill or a stack frame of either plane SpMV."""
     from dune_hdd_tpu_torch.kernels import build
 
     with ThreadPoolExecutor(len(names)) as pool:
@@ -242,8 +281,8 @@ def phase_build(names=("plane_spmv", "structured_spmv", "probe")):
             nvcc_seconds=f"{seconds:.2f}")
         for fn, info in ptxas_summary(compiler_log).items():
             log("ptxas", kernel=name, function=fn, **info)
-            if name == "plane_spmv" and (info["stack"] or info["spill_stores"]
-                                         or info["spill_loads"]):
+            if name in ("plane_spmv", "sym_plane_spmv") and (
+                    info["stack"] or info["spill_stores"] or info["spill_loads"]):
                 raise AssertionError(f"plane_spmv {fn}: stack frame or spills {info}")
     if "plane_spmv" in names:
         log_plane_geometry()
@@ -390,14 +429,20 @@ def phase_probe_vs_plain(dev):
 
 
 def phase_main_path(dev, bisections, repeats):
-    """The bench through its entry point, with the plane SpMV's launch count
-    set to 0 just before and read just after.  Returns the run's dict and
-    the launch count."""
+    """The bench through its entry point, with the plane SpMVs' launch
+    counts set to 0 just before and read just after, and the peak device
+    memory of the path (set-up included).  From 8 bisections on every
+    matvec of the solve is the half-storage kernel's.  Returns the run's
+    dict, the scaled system (the symmetric operator where the bench applies
+    it) and the launch count."""
     from dune_hdd_tpu_torch.bench_harness import run_spe10_bench
 
+    torch.cuda.reset_peak_memory_stats()
     start_path()
     r = run_spe10_bench(bisections=bisections, repeats=repeats, tol=1e-6, device=dev)
+    sym = sym_launches()
     launches = end_path()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not r["residual"] <= 1e-6:
         raise AssertionError(f"residual {r['residual']:.3e} > 1e-6")
     bench = r["bench"]
@@ -410,13 +455,15 @@ def phase_main_path(dev, bisections, repeats):
     per_solve = r["inner_iterations"] + r["outer_sweeps"]
     if launches < per_solve:
         raise AssertionError(f"{launches} kernel launches < {per_solve} SpMVs of one solve")
+    if bench.settings.symmetric and sym < per_solve:
+        raise AssertionError(f"{sym} sym_plane_spmv launches < {per_solve} SpMVs of one solve")
     log("main_path", bisections=bisections, dofs=r["num_dofs"], mid_shape=repr(bench.mid_shape),
         symmetric=bench.settings.symmetric, setup_seconds=f"{r['setup_seconds']:.3f}",
         warmup_seconds=f"{r['warmup_seconds']:.3f}", seconds=f"{r['seconds']:.6f}",
         mdof_per_s=f"{r['mdof_per_s']:.4f}", all_seconds=repr([round(t, 6) for t in r["all_times"]]),
         inner_iterations=r["inner_iterations"], outer_sweeps=r["outer_sweeps"],
         residual=f"{r['residual']:.3e}", residual_f64_recheck=f"{res64:.3e}",
-        launches=launches, peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        launches=launches, sym_plane_spmv_launches=sym, peak_gb=f"{peak_gb:.3f}",
         card=repr(card()))
     return r, (S, B), launches
 
@@ -492,13 +539,15 @@ def block_residual64(A, b, s, u):
 
 
 def plane_residual64(S, B, s, u, to_soa):
-    """The same for the plane system (S, B): float64, plain plane SpMV."""
+    """The same for the plane system (S, B): float64, the plain version of
+    the SpMV that S applies (the half-storage one where S is symmetric)."""
     from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference
+    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv_reference
 
     B64 = B.double()
     X = u[to_soa].reshape(B.shape) / s.double()
-    return ((B64 - plane_spmv_reference(S.matvec_planes.double(), X, S.plan)).norm()
-            / B64.norm()).item()
+    plain = sym_plane_spmv_reference if S.sym else plane_spmv_reference
+    return ((B64 - plain(S.planes.double(), X, S.plan)).norm() / B64.norm()).item()
 
 
 def twin_check(what, M, M_plain, r, rel):
@@ -685,11 +734,11 @@ def phase_factored_bcr(dev, r_default, bisections=8):
     res64 = plane_residual64(S_sym, B, s, sol.u, bench.to_soa)
     if not (sol.residual <= 1e-6 and res64 <= 1.01e-6 and n > 0):
         raise AssertionError(f"factored BCR bench: residual {sol.residual:.3e}, float64 "
-                             f"{res64:.3e}, {n} plane_spmv launches")
+                             f"{res64:.3e}, {n} plane SpMV launches")
     log("factored_bcr_bench", bisections=bisections, dofs=bench.num_dofs,
         macro=repr(FACTORED_MACRO), setup_seconds=f"{setup_s:.3f}", seconds=f"{seconds:.4f}",
         iterations=sol.iterations, sweeps=sol.sweeps, residual=f"{sol.residual:.3e}",
-        residual_f64_recheck=f"{res64:.3e}", plane_spmv_launches=n,
+        residual_f64_recheck=f"{res64:.3e}", plane_spmv_and_sym_launches=n,
         default_macro_iterations=r_default["inner_iterations"],
         default_macro_sweeps=r_default["outer_sweeps"],
         default_macro_seconds=f"{r_default['seconds']:.4f}", card=repr(card()))
@@ -752,8 +801,9 @@ def shard_mesh(dev, mu_axis=1):
 def phase_sharded_main_path(dev, r, S, B):
     """The 12.29M-DoF main path split into SHARDS x-slabs of one card
     (la/stencil_sharded.py) on the bench's own system (B and the operator
-    the bench solves, S's symmetrized planes: the assembled planes are
-    another operator, see ``phase_sharded_operator_gap``): the
+    the bench solves, S's symmetric operator materialized as full planes:
+    the assembled planes are another operator, see
+    ``phase_sharded_operator_gap``): the
     slab matvec bitwise equal to the single-shard plane_spmv in float32 and
     float64; the slab kernel against its plain version and timed beside
     the BSR call at one slab; the two-level weighted deflation (the bench's
@@ -763,12 +813,12 @@ def phase_sharded_main_path(dev, r, S, B):
     and read just after.  Returns the kernels line's slab rows."""
     from dune_hdd_tpu_torch.kernels.plane_spmv import (
         SLAB_HALO, plane_spmv, plane_spmv_reference, plane_spmv_slab, plane_spmv_slab_reference)
-    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll, symmetric_planes
     from dune_hdd_tpu_torch.la.stencil_sharded import ShardedStencilSystem
 
     bench = r["bench"]
     _, _, s = bench.assemble(r["field"])  # the scaling of (S, B): the deflation weight is 1/s
-    S = StencilBlockEll(S.matvec_planes, S.plan)
+    S = StencilBlockEll(symmetric_planes(S), S.plan)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     system = ShardedStencilSystem(S, B, shard_mesh(dev), macro=SHARDED_MACRO,
@@ -1269,28 +1319,142 @@ def phase_timing_768k(dev, S, B, A, b_flat):
     return st, probe_row, plane_err
 
 
-def phase_symmetric_checks(S):
-    """The plane SpMV on the symmetrized 3.07M-DoF planes against its plain
-    version in f32 and f64, and the symmetric operator against the assembled
-    one.  Returns the max abs error of the kernel over both dtypes."""
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference
+def time_sym_plane_spmv(S, B, label):
+    """The half-storage kernel on the symmetric operator S: bitwise its plain
+    version, within 1e-6 / 1e-14 x max (f32 / f64) of plane_spmv on the
+    materialized symmetric planes (the same operator summed in another
+    order), and timed beside its plain version, the BSR library call of the
+    full symmetric operator and plane_spmv on those planes, in f32 and f64.
+    Returns ({dtype name: timing fields}, the max abs error against the plain
+    version); bytes = the exact half-storage read + 2 vectors, operations =
+    one multiply-add per value of the full operator."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import (
+        sym_plane_bytes, sym_plane_spmv, sym_plane_spmv_reference)
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll, symmetric_planes
 
+    out, err = {}, 0.0
+    for dtype, rel in ((torch.float32, 1e-6), (torch.float64, 1e-14)):
+        name = str(dtype).replace("torch.", "")
+        W, X = S.planes.to(dtype), B.to(dtype)
+        y, y_plain = sym_plane_spmv(W, X, S.plan), sym_plane_spmv_reference(W, X, S.plan)
+        err = max(err, rel_check(f"sym_plane_spmv vs plain ({label} {name})", y, y_plain, 0.0))
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"sym_plane_spmv differs from its plain version ({label} {name})")
+        Wsym = symmetric_planes(StencilBlockEll(W, S.plan))
+        e_full = rel_check(f"sym_plane_spmv vs plane_spmv on symmetric planes ({label} {name})",
+                           y, plane_spmv(Wsym, X, S.plan), rel)
+        A, x = bsr_operator(Wsym, S.plan), flat(X)
+        e_lib = rel_check(f"BSR library call vs sym_plane_spmv ({label} {name})", A @ x, flat(y),
+                          1e-4 if dtype == torch.float32 else 1e-11)
+        full_ms = time_calls(lambda: plane_spmv(Wsym, X, S.plan))
+        out[name] = dict(timed(
+            "sym_plane_spmv", f"{label} {name}", lambda: sym_plane_spmv(W, X, S.plan),
+            lambda: sym_plane_spmv_reference(W, X, S.plan), lambda: A @ x,
+            sym_plane_bytes(S.nd, S.lattice, W.element_size()), 2 * W.numel(), dtype,
+            dofs=X.numel(), lattice="x".join(map(str, S.lattice)), bitwise_equal=True,
+            max_abs_diff_vs_plane_spmv_on_symmetric_planes=f"{e_full:.3e}",
+            plane_spmv_on_symmetric_planes_us=f"{full_ms * 1e3:.2f}",
+            library_max_abs_diff=f"{e_lib:.3e}"), plane_spmv_symmetric_planes_ms=full_ms)
+        del W, X, y, y_plain, Wsym, A, x
+    torch.cuda.empty_cache()
+    return out, err
+
+
+def phase_sym_random(dev):
+    """sym_plane_spmv bitwise against its plain version at every nd and
+    dtype on random planes (every value nonzero, the wrapped ones too) under
+    the bench's plan, on lattices smaller than the plan's shifts, smaller
+    than a block row and not a multiple of one."""
+    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv, sym_plane_spmv_reference
+
+    plan = esv_plan()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cases = 0
+    for nd in (3, 6, 10):
+        for dtype in (torch.float32, torch.float64):
+            for lattice in ((2, 3), (4, 4), (20, 100), (12, 44)):
+                W = torch.randn((4, nd, nd, 8) + lattice, generator=gen, device=dev, dtype=dtype)
+                X = torch.randn((nd, 8) + lattice, generator=gen, device=dev, dtype=dtype)
+                if not torch.equal(sym_plane_spmv(W, X, plan),
+                                   sym_plane_spmv_reference(W, X, plan)):
+                    raise AssertionError(f"sym_plane_spmv differs from its plain version: nd {nd} "
+                                         f"{dtype} {lattice}")
+                cases += 1
+    log("kernel_vs_plain", kernel="sym_plane_spmv", random_planes_cases=cases, bitwise_equal=True)
+
+
+def phase_symmetric_checks(S, B):
+    """The half-storage kernel on the symmetric 3.07M-DoF operator
+    (``time_sym_plane_spmv``), and the symmetric operator against the
+    assembled one.  Returns the max abs error of the kernel against its
+    plain version."""
+    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
+
+    _, err = time_sym_plane_spmv(S, B, "3.07M")
     gen = torch.Generator(device="cpu").manual_seed(14)
     X = torch.randn((3, 8) + tuple(S.lattice), generator=gen).to(S.planes.device)
-    y = plane_spmv(S.sym_planes, X, S.plan)
-    err = rel_check("plane_spmv on symmetric planes vs plain", y,
-                    plane_spmv_reference(S.sym_planes, X, S.plan), 1e-5)
-    W64, X64 = S.sym_planes.double(), X.double()
-    err64 = rel_check("plane_spmv on symmetric f64 planes vs plain", plane_spmv(W64, X64, S.plan),
-                      plane_spmv_reference(W64, X64, S.plan), 1e-12)
-    del W64, X64
-    y_assembled = plane_spmv(S.planes, X, S.plan)
+    y, y_assembled = S.matvec(X), plane_spmv(S.planes, X, S.plan)
     diff = rel_check("symmetric vs assembled operator", y, y_assembled, 1e-5)
     log("symmetric_operator", dofs=X.numel(), kernel_vs_plain_max_abs_err=f"{err:.3e}",
-        kernel_vs_plain_f64_max_abs_err=f"{err64:.3e}",
         sym_vs_assembled_max_abs_diff=f"{diff:.3e}",
         rel=f"{diff / y_assembled.abs().max().item():.3e}")
-    return max(err, err64)
+    return err
+
+
+ROOFLINE_BISECTIONS = 8
+
+
+def phase_roofline(dev):
+    """bench_harness.stencil2_roofline at 3.07M DoF (the bench's cached
+    set-up of the main path before it): copy, half-storage matvec and
+    assembly GB/s under the reference's byte models."""
+    from dune_hdd_tpu_torch.bench_harness import stencil2_roofline
+
+    r = stencil2_roofline(bisections=ROOFLINE_BISECTIONS, device=dev)
+    if not all(math.isfinite(v) and v > 0 for v in r.values()):
+        raise AssertionError(f"stencil2_roofline: {r}")
+    log("roofline", bisections=ROOFLINE_BISECTIONS, **r, card=repr(card()))
+    return r
+
+
+def phase_bench_entry():
+    """``python -m dune_hdd_tpu_torch.bench`` at 768k DoF as a user runs it,
+    in a process of its own: its last line parses, with a true 1e-6."""
+    cmd = [sys.executable, "-m", "dune_hdd_tpu_torch.bench", "--bisections", "6", "--repeats",
+           "3", "--provenance", "off"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (out["residual"] <= 1e-6 and out["platform"] == "gpu" and "roofline" in out):
+        raise AssertionError(f"bench entry: {out}")
+    log("bench_entry", command=repr(" ".join(cmd[1:])), line=json.dumps(out), card=repr(card()))
+
+
+def phase_rb_demo(dev):
+    """``examples/thermalblock_rb_demo`` at its defaults on the card, in a
+    temporary working directory: both greedy bases, finite test errors, the
+    saved model loads back."""
+    import tempfile
+    from contextlib import chdir
+
+    from dune_hdd_tpu_torch.examples import thermalblock_rb_demo
+    from dune_hdd_tpu_torch.mor import load_reduced_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, chdir(tmp):
+        out = thermalblock_rb_demo.main(["--device", "cuda"])
+        loaded = load_reduced_model(out["path"], device=dev)
+        if not torch.equal(loaded.basis, out["rb"].reduced_model.basis):
+            raise AssertionError("the demo's saved model does not load back")
+    errors = {k: max(v) for k, v in out["errors"].items()}
+    if not all(math.isfinite(e) for e in errors.values()):
+        raise AssertionError(f"rb demo: test errors {errors}")
+    log("rb_demo", rb_basis=out["rb"].basis.shape[0], lrbms_basis=out["lrbms"].basis.shape[0],
+        max_test_errors=repr({k: f"{v:.3e}" for k, v in errors.items()}),
+        seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card()))
 
 
 def check_plane_spmv_at(system, what):
@@ -2933,6 +3097,7 @@ def time_general_spmvs(d, mu, like):
 
 def main():
     from dune_hdd_tpu_torch.bench_harness import _bench_geometry
+    from dune_hdd_tpu_torch.la.stencil import symmetric_planes
 
     phase_device()
     dev = torch.device("cuda", 0)
@@ -2940,6 +3105,7 @@ def main():
     phase_process_group()
     bench6, S6, B6, plane_err = phase_plane_vs_plain(dev)
     phase_plane_random(dev)
+    phase_sym_random(dev)
     A6, b6, structured_err = phase_structured_vs_plain(dev, bench6, S6, B6)
     probe_err = phase_probe_vs_plain(dev)
 
@@ -2954,17 +3120,21 @@ def main():
     plane_err = max(plane_err, err)
     del bench6, S6, B6, A6, b6
 
-    r, (S8, _), _ = phase_main_path(dev, 8, repeats=3)
-    plane_err = max(plane_err, phase_symmetric_checks(S8))
-    del S8
+    r, (S8, B8), _ = phase_main_path(dev, 8, repeats=3)
+    sym_err = phase_symmetric_checks(S8, B8)
+    del S8, B8
+    phase_roofline(dev)
     phase_factored_bcr(dev, r)
     del r
     torch.cuda.empty_cache()
+    phase_bench_entry()
 
     r, (S10, B10), _ = phase_main_path(dev, 10, repeats=3)
     slab_rows = phase_sharded_main_path(dev, r, S10, B10)
     del r
-    plane_times, err = time_plane_spmv(S10, B10, "12.29M symmetric", W=S10.sym_planes)
+    sym_times, err = time_sym_plane_spmv(S10, B10, "12.29M")
+    sym_err = max(sym_err, err)
+    plane_times, err = time_plane_spmv(S10, B10, "12.29M symmetric", W=symmetric_planes(S10))
     plane_err = max(plane_err, err)
     del S10, B10
     phase_native_connectivity(dev)
@@ -3010,11 +3180,15 @@ def main():
     torch.cuda.empty_cache()
     phase_adaptive_spe10(dev)
     phase_adaptive_os2014(dev)
+    phase_rb_demo(dev)
     total = sum(PATH_LATTICE_LAUNCHES.values())
     log("done", seconds=f"{time.perf_counter() - _T0:.1f}",
-        plane_spmv_launches=repr(dict(PATH_LAUNCHES)))
+        plane_spmv_launches=repr(dict(PATH_LAUNCHES)),
+        sym_plane_spmv_launches=repr(dict(SYM_PATH_LAUNCHES)))
     for key, n in PATH_LATTICE_LAUNCHES.most_common():
         log("plane_spmv_launches", case=repr(key), launches=n, share=f"{n / total:.4f}")
+    for key, n in SYM_PATH_LATTICE_LAUNCHES.most_common():
+        log("sym_plane_spmv_launches", case=repr(key), launches=n)
 
     rows = {"plane_spmv_nd3_f32": (dict(plane_times["float32"],
                                         launches=PATH_LAUNCHES["nd3_f32"]), plane_err),
@@ -3026,6 +3200,10 @@ def main():
             "structured_spmv": (dict(structured_ms, launches=launches["structured_spmv"]),
                                 structured_err),
             "probe": (dict(probe_ms, launches=launches["probe"]), probe_err),
+            "sym_plane_spmv_nd3_f32": (dict(sym_times["float32"],
+                                            launches=SYM_PATH_LAUNCHES["nd3_f32"]), sym_err),
+            "sym_plane_spmv_nd3_f64": (dict(sym_times["float64"],
+                                            launches=SYM_PATH_LAUNCHES["nd3_f64"]), sym_err),
             **higher_rows, **slab_rows}
     for name, (row, _) in rows.items():
         if not row["launches"] > 0:
@@ -3047,7 +3225,7 @@ def main_sharded():
     native connectivity."""
     phase_device()
     dev = torch.device("cuda", 0)
-    phase_build(("plane_spmv",))
+    phase_build(("plane_spmv", "sym_plane_spmv"))
     phase_process_group()
     r, (S10, B10), _ = phase_main_path(dev, 10, repeats=1)
     phase_sharded_main_path(dev, r, S10, B10)
@@ -3058,6 +3236,37 @@ def main_sharded():
     _, _, thermalblock, _ = phase_thermalblock_online(dev, count=PIPELINE_MUS)
     phase_block_sharded(dev, *thermalblock)
     phase_sharded_sweeps_and_pipeline(dev, thermalblock[1])
+    print(card())
+
+
+def main_symmetric():
+    """``--symmetric``: build both plane SpMVs and run the half-storage
+    kernel's phases with the paths they follow (the 3.07M and 12.29M main
+    paths, one timed call each; the roofline, the bench entry, the 12.29M
+    timing and sharded solve, the RB demo)."""
+    from dune_hdd_tpu_torch.bench_harness import _bench_geometry
+
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(("plane_spmv", "sym_plane_spmv"))
+    phase_sym_random(dev)
+    r, (S8, B8), _ = phase_main_path(dev, 8, repeats=1)
+    phase_symmetric_checks(S8, B8)
+    del r, S8, B8
+    phase_roofline(dev)
+    _bench_geometry.cache_clear()
+    torch.cuda.empty_cache()
+    phase_bench_entry()
+    r, (S10, B10), _ = phase_main_path(dev, 10, repeats=1)
+    phase_sharded_main_path(dev, r, S10, B10)
+    del r
+    time_sym_plane_spmv(S10, B10, "12.29M")
+    del S10, B10
+    _bench_geometry.cache_clear()
+    torch.cuda.empty_cache()
+    phase_rb_demo(dev)
+    log("done", seconds=f"{time.perf_counter() - _T0:.1f}",
+        sym_plane_spmv_launches=repr(dict(SYM_PATH_LAUNCHES)))
     print(card())
 
 
@@ -3076,7 +3285,7 @@ def main_alt_solvers():
     3.07M DoF, one timed call each)."""
     phase_device()
     dev = torch.device("cuda", 0)
-    phase_build(("plane_spmv", "structured_spmv"))
+    phase_build(("plane_spmv", "structured_spmv", "sym_plane_spmv"))
     r6, _, _ = phase_main_path(dev, 6, repeats=1)
     phase_alt_solvers(dev, r6["u"])
     del r6
@@ -3092,5 +3301,7 @@ if __name__ == "__main__":
         main_alt_solvers()
     elif "--sharded" in sys.argv:
         main_sharded()
+    elif "--symmetric" in sys.argv:
+        main_symmetric()
     else:
         main()

@@ -13,7 +13,8 @@ branch:
   bisections, three-level with a Chebyshev-accelerated middle level from 8
   on) or, with ``pc2="mg"``, the plane-layout aggregation V-cycle, and
   solve with float32 PCG inside float64 iterative refinement, applying the
-  exactly symmetrized operator from 8 bisections on; ``smoother="cheb<k>"``
+  exactly symmetrized operator in half storage (``sym_plane_spmv``) from 8
+  bisections on; ``smoother="cheb<k>"``
   smooths with a degree-k Chebyshev polynomial instead of block Jacobi;
 * "stencil": the general block-ELL assembly in float32, permuted into
   planes, then the same deflation preconditioner and refined solve;
@@ -92,7 +93,8 @@ from .testcases._spe10_channel import CHANNEL
 from .utils.logging import timed
 
 __all__ = ["build_spe10_bench", "run_spe10_bench", "Spe10Bench", "BenchSolution",
-           "block_provenance_check", "block_system", "spe10_block_discretization"]
+           "stencil2_roofline", "block_provenance_check", "block_system",
+           "spe10_block_discretization"]
 
 _FORCES = [
     ((0.95, 0.30), (1.10, 0.45), 2000.0),
@@ -449,6 +451,87 @@ def run_spe10_bench(bisections: int = 4, repeats: int = 3, tol: float = 1e-6,
         "bench": bench,
         "field": f if repeats else bench.field,
         "u": sol.u,
+    }
+
+
+def stencil2_roofline(bisections: int = 6, repeats: int = 7, pcg_iters: int = 100,
+                      device="cuda") -> dict:
+    """Achieved device-memory GB/s of the stencil2 hot phases at the bench's
+    size (the reference's ``stencil2_roofline``), each the median over
+    ``repeats`` loops timed between two synchronizations, after one
+    untimed loop:
+
+    * ``copy_gbps``: 100 chained ``y = y + 1`` over N float32 values, 8N
+      bytes each (read and write);
+    * ``matvec_ms`` / ``matvec_gbps``: ``pcg_iters`` chained half-storage
+      symmetric matvecs of the scaled operator; bytes model per matvec:
+      half the full plane array (the forward plane sets and the upper self
+      triangles) plus the input and output vectors;
+    * ``assembly_ms`` / ``assembly_gbps``: the direct-to-planes assembly,
+      the rhs and the diagonal scaling; bytes model: the plane array
+      written once plus two vectors.
+
+    The models count the traffic the algorithm needs (the reference's; the
+    exact half-storage read is 19.5 of 36 plane values per cell at nd 3, so
+    the matvec model undercounts it by ~8%), so the GB/s are lower bounds
+    of what the card moved.  The host set-up is the bench's cached
+    ``_bench_geometry``; runs on ``device`` (the card unless the caller
+    asks for the CPU).  Unlike the reference's, the numbers are not
+    rounded."""
+    _highest_precision()
+    device = resolve_device(device)
+    geo = _bench_geometry(bisections, device)
+    field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
+    force = IndicatorFunction(_FORCES)
+    n = geo.grid.num_cells * 3
+
+    def loop_seconds(fn, reps):
+        fn()
+        _sync(device)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        return float(statistics.median(times)) / reps
+
+    def assemble():
+        S = assemble_structured_spe10(geo.tensors, geo.broadcast(field))
+        return scale_planes(S, structured_rhs(geo.tensors, force))
+
+    t_asm = loop_seconds(assemble, 4)
+    S, B, _ = assemble()
+    Ssym = S.symmetrized()
+
+    def matvecs():
+        Y = B
+        for _ in range(pcg_iters):
+            Y = Ssym.matvec(Y)
+        return Y
+
+    t_mv = loop_seconds(matvecs, 1) / pcg_iters
+    x = torch.arange(n, dtype=torch.float32, device=device)
+    copy_reps = 100
+
+    def copies():
+        y = x
+        for _ in range(copy_reps):
+            y = y + 1.0
+        return y
+
+    t_copy = loop_seconds(copies, 1) / copy_reps
+    plane_bytes = float(S.planes.numel()) * 4.0
+    sym_read_bytes = plane_bytes * 0.5  # forward edges + upper-triangle self
+    vec_bytes = 4.0 * n
+    return {
+        "num_dofs": int(n),
+        "copy_gbps": 8.0 * n / t_copy / 1e9,
+        "matvec_ms": t_mv * 1e3,
+        "matvec_gbps": (sym_read_bytes + 2 * vec_bytes) / t_mv / 1e9,
+        "assembly_ms": t_asm * 1e3,
+        "assembly_gbps": (plane_bytes + 2 * vec_bytes) / t_asm / 1e9,
     }
 
 

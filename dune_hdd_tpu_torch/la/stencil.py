@@ -11,7 +11,8 @@ geometric slot-s neighbour is the subclass-``k_src`` cell at
 (iy+dy, ix+dx).  Reads that wrap around a lattice axis meet zero blocks
 (domain boundary), so the per-axis wrap is harmless.
 
-The SpMV is the hand-written kernel ``kernels/plane_spmv``; everything else
+The SpMVs are the hand-written kernels ``kernels/plane_spmv`` and, for the
+half-storage symmetric operator, ``kernels/sym_plane_spmv``; everything else
 is plain torch on the planes' device.
 """
 from __future__ import annotations
@@ -23,10 +24,12 @@ import numpy as np
 import torch
 
 from ..kernels.plane_spmv import plane_spmv
+from ..kernels.sym_plane_spmv import sym_forward_edges, sym_plane_spmv
 from .block_ell import BlockEllMatrix, StructuredBlockEll, inv3x3
 
 __all__ = [
     "StencilBlockEll",
+    "symmetric_planes",
     "stencil_plan",
     "soa_index_maps",
     "jacobi_smoother",
@@ -87,22 +90,24 @@ class StencilBlockEll:
     operator; it is the hand-written kernel unless a caller substitutes its
     plain version.
 
-    A symmetric operator (:meth:`symmetrized`) keeps the assembled
-    ``planes``, from which the preconditioner is built, and applies
-    ``sym_planes``: the exactly symmetric operator that the reference's
-    half-storage ``_matvec_sym`` applies, materialized once."""
+    ``sym=True`` switches :meth:`matvec` to the half-storage symmetric form,
+    the kernel ``sym_plane_spmv`` (the reference's ``_matvec_sym``): the
+    SWIPDG operator is symmetric, so each undirected coupling edge (k, s) ~
+    (k_src, s') satisfies W[s'+1, j, i, k_src] == roll(W[s+1, i, j, k],
+    (dy, dx)) up to assembly roundoff.  The symmetric matvec reads only the 12 forward-edge
+    plane sets and the upper triangle of the self blocks of the same
+    ``planes`` and applies each stored plane twice (forward, and transposed
+    at the inverse shift).  The result is the exactly symmetrized operator
+    (:func:`symmetric_planes` materializes it); it differs from the
+    assembled one within assembly roundoff."""
 
     def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv,
-                 sym_planes: Optional[torch.Tensor] = None):
+                 sym: bool = False):
         self.planes = planes
         self.plan = tuple(tuple(tuple(int(v) for v in e) for e in row)
                           for row in plan)
         self.spmv = spmv
-        self.sym_planes = sym_planes
-
-    @property
-    def sym(self) -> bool:
-        return self.sym_planes is not None
+        self.sym = bool(sym)
 
     @classmethod
     def from_block_ell(cls, A: BlockEllMatrix, order) -> "StencilBlockEll":
@@ -131,59 +136,15 @@ class StencilBlockEll:
     def num_cells(self) -> int:
         return 8 * self.planes.shape[-2] * self.planes.shape[-1]
 
-    @property
-    def matvec_planes(self) -> torch.Tensor:
-        """The planes that :meth:`matvec` applies."""
-        return self.planes if self.sym_planes is None else self.sym_planes
-
     def with_planes(self, planes: torch.Tensor) -> "StencilBlockEll":
-        return StencilBlockEll(planes, self.plan, self.spmv)
+        return StencilBlockEll(planes, self.plan, self.spmv, self.sym)
 
     def astype(self, dtype: torch.dtype) -> "StencilBlockEll":
-        """The operator in ``dtype``; a symmetric one stays symmetric (the
-        symmetrization only moves values, so it commutes with the cast)."""
-        sym_planes = None if self.sym_planes is None else self.sym_planes.to(dtype)
-        return StencilBlockEll(self.planes.to(dtype), self.plan, self.spmv, sym_planes)
-
-    def _sym_forward_edges(self):
-        """12 forward (k, s) edges covering each undirected coupling once,
-        with the reverse (k_src, s') partner.  Raises if the plan is not
-        symmetric (it is for the NVB subclass structure)."""
-        pairs = {}
-        for k in range(8):
-            for s in range(3):
-                ks, dy, dx = self.plan[k][s]
-                rev = None
-                for sp in range(3):
-                    if self.plan[ks][sp] == (k, -dy, -dx):
-                        rev = sp
-                if rev is None:
-                    raise ValueError(f"stencil plan has no reverse edge for (k={k}, s={s})")
-                pairs[(k, s)] = (ks, rev)
-        return [(e, pairs[e]) for e in pairs if e < pairs[e]]
+        return self.with_planes(self.planes.to(dtype))
 
     def symmetrized(self) -> "StencilBlockEll":
-        """The same operator with the exactly symmetric planes beside the
-        assembled ones: the self block's upper triangle used both ways, and
-        for each forward edge (k, s) ~ (ks, sp) with shift (dy, dx) the
-        reverse slot Wsym[sp+1, j, i, ks] = roll(W[s+1, i, j, k], (dy, dx)).
-        It differs from the assembled operator within assembly roundoff."""
-        W = self.planes
-        nd = self.nd
-        Ws = torch.empty_like(W)
-        for i in range(nd):
-            for j in range(nd):
-                Ws[0, i, j] = W[0, min(i, j), max(i, j)]
-        written = set()
-        for (k, s), (ks, sp) in self._sym_forward_edges():
-            _, dy, dx = self.plan[k][s]
-            Ws[s + 1, :, :, k] = W[s + 1, :, :, k]
-            Ws[sp + 1, :, :, ks] = torch.roll(W[s + 1, :, :, k], shifts=(dy, dx),
-                                              dims=(-2, -1)).transpose(0, 1)
-            written |= {(k, s), (ks, sp)}
-        if len(written) != 24:
-            raise ValueError("stencil plan's forward edges do not cover all 24 slots")
-        return StencilBlockEll(W, self.plan, self.spmv, Ws)
+        """Same planes, half-storage symmetric matvec (see class docstring)."""
+        return StencilBlockEll(self.planes, self.plan, self.spmv, sym=True)
 
     def neighbor_fields(self, X: torch.Tensor):
         """[4][nd, 8, KY, KX] neighbour fields (self + 3 slots) of X."""
@@ -197,9 +158,10 @@ class StencilBlockEll:
         return fields
 
     def matvec(self, X: torch.Tensor) -> torch.Tensor:
-        """X [nd, 8, KY, KX] -> A X in the same layout (the symmetric
-        operator when ``sym``)."""
-        return self.spmv(self.matvec_planes, X.contiguous(), self.plan)
+        """X [nd, 8, KY, KX] -> A X in the same layout (the half-storage
+        symmetric operator when ``sym``)."""
+        spmv = sym_plane_spmv if self.sym else self.spmv
+        return spmv(self.planes, X.contiguous(), self.plan)
 
     def diagonal_blocks(self) -> torch.Tensor:
         """[nd, nd, 8, KY, KX]."""
@@ -208,6 +170,26 @@ class StencilBlockEll:
     def row_sums(self) -> torch.Tensor:
         """[4, nd, 8, KY, KX] with AZ[s,i,c] = sum_j W[s,i,j,c]."""
         return self.planes.sum(dim=2)
+
+
+def symmetric_planes(S: StencilBlockEll) -> torch.Tensor:
+    """The exactly symmetric operator that ``S.symmetrized()`` applies,
+    materialized as full planes: the self block's upper triangle used both
+    ways, and for each forward edge (k, s) ~ (ks, sp) with shift (dy, dx)
+    the reverse slot Wsym[sp+1, j, i, ks] = roll(W[s+1, i, j, k], (dy, dx)).
+    A second plane array: for operators that only take full planes (the
+    sharded x-slab solver)."""
+    W = S.planes
+    Ws = torch.empty_like(W)
+    for i in range(S.nd):
+        for j in range(S.nd):
+            Ws[0, i, j] = W[0, min(i, j), max(i, j)]
+    for (k, s), (ks, sp) in sym_forward_edges(S.plan):
+        _, dy, dx = S.plan[k][s]
+        Ws[s + 1, :, :, k] = W[s + 1, :, :, k]
+        Ws[sp + 1, :, :, ks] = torch.roll(W[s + 1, :, :, k], shifts=(dy, dx),
+                                          dims=(-2, -1)).transpose(0, 1)
+    return Ws
 
 
 # -- smoother ----------------------------------------------------------------
@@ -907,8 +889,8 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
     above that (two-level) the factored BCR straight from the coarse bands,
     never densified; ``residual_dtype`` is the precision of the factored
     solves' defect correction (float32: none).  The preconditioner is built
-    from ``A.planes``, the assembled operator, also when A applies its
-    symmetrized planes."""
+    from ``A.planes``, the assembled operator, also when A applies the
+    symmetric form."""
     # weighted pairing sums P_w[s,k] = sum_ij w_i W[s,i,j] w_j(neighbour)
     wnbr = A.neighbor_fields(weight)  # [4][nd, 8, KY, KX]
     Pw = torch.stack([(weight[:, None] * A.planes[s] * wnbr[s][None, :]).sum(dim=(0, 1))
@@ -1052,9 +1034,7 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     residual, which is recomputed with the float64 SpMV (of the symmetric
     operator when A is symmetric).  ``dot_dtype``/``vec_dtype`` go to
     :func:`stencil_pcg`."""
-    # only the planes that A applies: a symmetric A's assembled planes would
-    # be a float64 copy that no matvec reads
-    A64 = StencilBlockEll(A.matvec_planes.to(torch.float64), A.plan, A.spmv)
+    A64 = A.astype(torch.float64)
     B64 = B.to(torch.float64)
     bnorm = torch.linalg.norm(B64).item()
     target = tol * max(bnorm, 1e-300)

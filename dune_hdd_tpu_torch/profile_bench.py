@@ -8,16 +8,19 @@ copy intervals) and idle share, the number of host syncs (``.item()``
 calls: the PCG's per-``unroll`` convergence checks and the refinement's
 per-sweep residual norm), the host time blocked in them, the device idle
 time in the gaps during which a sync returned, and the kernels with the
-most device time, and the host ops with the most self time.  The profiler
-slows the host, so the traced wall time is longer than the untraced one; the
-shares are of the traced run.  Before the trace, one untraced call is timed
-by layer: assembly + scaling, preconditioner build (with the operator's
-symmetrization), and the refined solve.
+most device time, the device time of the plane SpMV kernels (full and
+half-storage) and their share of the busy time, and the host ops with the
+most self time.  The profiler slows the host, so the traced wall time is
+longer than the untraced one; the shares are of the traced run.  Before the
+trace, one untraced call is timed by layer: assembly + scaling,
+preconditioner build, and the refined solve, each with its peak device
+memory (the set-up's tensors included).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import torch
@@ -28,14 +31,19 @@ from .bench_harness import build_spe10_bench
 _SYNC_OPS = ("aten::_local_scalar_dense",)
 
 
-def layer_seconds(bench, field) -> dict:
-    """Seconds of one untraced call, split by layer (a sync after each)."""
+def layer_seconds(bench, field) -> tuple:
+    """Seconds of one untraced call, split by layer (a sync after each), and
+    the peak device memory (GB) of each layer with what it finds allocated."""
     marks = [time.perf_counter()]
+    peaks = []
 
     def mark():
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
 
+    torch.cuda.reset_peak_memory_stats()
     S, B, s = bench.assemble(field)
     mark()
     bench.precondition(S, s)
@@ -45,8 +53,9 @@ def layer_seconds(bench, field) -> dict:
     bench.precondition(S, s)  # solve built M again: take it off
     mark()
     asm, pre, solve, pre2 = (b - a for a, b in zip(marks, marks[1:]))
-    return {"assemble": asm, "precondition": pre, "refined_solve": solve - pre2,
-            "call": asm + solve}
+    return ({"assemble": asm, "precondition": pre, "refined_solve": solve - pre2,
+             "call": asm + solve},
+            {"assemble": peaks[0], "precondition": peaks[1], "solve": peaks[2]})
 
 
 def profile_call(bisections: int) -> dict:
@@ -56,7 +65,7 @@ def profile_call(bisections: int) -> dict:
     bench = build_spe10_bench(bisections=bisections, device=dev)
     bench.fn(bench.field)  # warm-up: kernel library, allocator, cuBLAS handles
     field = bench.field * (1.0 + 1e-6)
-    layers = layer_seconds(bench, field)
+    layers, peaks = layer_seconds(bench, field)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -85,6 +94,7 @@ def profile_call(bisections: int) -> dict:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    spmv = sum(t for name, t in by_name.items() if "plane_spmv" in name)
     host_ops = sorted(((a.key, a.self_cpu_time_total, a.count) for a in prof.key_averages()),
                       key=lambda t: -t[1])[:10]
     span = (device[-1][1] - device[0][0]) if device else 0.0
@@ -93,6 +103,9 @@ def profile_call(bisections: int) -> dict:
         "dofs": bench.num_dofs,
         "untraced_layer_seconds": layers,
         "device": torch.cuda.get_device_name(0),
+        "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True, timeout=60).stdout.strip().splitlines()[0],
         "residual": sol.residual,
         "inner_iterations": sol.iterations,
         "outer_sweeps": sol.sweeps,
@@ -107,6 +120,9 @@ def profile_call(bisections: int) -> dict:
         "device_idle_in_sync_gaps_ms": sync_idle / 1e3 if device else None,
         "sync_gap_share_of_wall": (sync_idle / wall_us) if device else None,
         "top_kernels_ms": [(name[:80], t / 1e3) for name, t in top],
+        "plane_spmv_kernels_ms": spmv / 1e3,
+        "plane_spmv_share_of_device_busy": spmv / busy if busy else None,
+        "untraced_layer_peak_gb": peaks,
         "top_host_ops_self_ms_count": [(name[:60], t / 1e3, n) for name, t, n in host_ops],
     }
 

@@ -64,6 +64,10 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch.parallel.pipeline, dune_hdd_tpu_torch.la.stencil_sharded\n"
         "import dune_hdd_tpu_torch.native\n"
         "from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_slab\n"
+        "import dune_hdd_tpu_torch.kernels.sym_plane_spmv, dune_hdd_tpu_torch.bench\n"
+        "import dune_hdd_tpu_torch.examples.thermalblock_rb_demo\n"
+        "from dune_hdd_tpu_torch.bench_harness import stencil2_roofline\n"
+        "from dune_hdd_tpu_torch.la.stencil import symmetric_planes\n"
         "assert not [m for m in sys.modules if m == 'dune_hdd_tpu' or m.startswith('dune_hdd_tpu.')]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )

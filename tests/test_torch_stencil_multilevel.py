@@ -4,9 +4,9 @@ the JAX package's, on the bench's scaled SPE10 operator at 4 bisections
 (100, 20), as the reference's own multilevel test cuts it (float32, the
 reference in its bench scope: x64 off, highest matmul precision):
 
-* the symmetrized operator: matvec 1e-5 x max (f32) and 1e-12 x max (f64,
-  ``astype`` keeps it symmetric), within assembly roundoff (1e-5 x max) of
-  the assembled operator, and exactly symmetric;
+* the symmetrized (half-storage) operator: matvec 1e-5 x max (f32) and
+  1e-12 x max (f64, ``astype`` keeps it symmetric), within assembly
+  roundoff (1e-5 x max) of the assembled operator, and exactly symmetric;
 * stencil bands, their re-aggregation and the dense coarse operator,
   1e-6 x max;
 * the power iteration's lambda_max, rel 1e-4;
@@ -34,6 +34,7 @@ from dune_hdd_tpu.la import stencil as jx  # noqa: E402
 from dune_hdd_tpu_torch.bench_harness import build_spe10_bench  # noqa: E402
 from dune_hdd_tpu_torch.convert import stencil_from_numpy  # noqa: E402
 from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference  # noqa: E402
+from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv_reference  # noqa: E402
 from dune_hdd_tpu_torch.la import stencil as pt  # noqa: E402
 
 BISECTIONS = 4
@@ -106,9 +107,11 @@ def test_symmetrized_matvec_matches(system, dtype, rel):
 def test_symmetrized_astype_keeps_sym_and_is_symmetric(system):
     S_t, _ = _both(system)
     S64 = S_t.symmetrized().astype(torch.float64)
-    assert S64.sym and S64.sym_planes.dtype == S64.planes.dtype == torch.float64
-    np.testing.assert_array_equal(S64.sym_planes.numpy(),
-                                  S_t.symmetrized().sym_planes.double().numpy())
+    assert S64.sym and S64.planes.dtype == torch.float64
+    np.testing.assert_array_equal(S64.planes.numpy(), S_t.planes.double().numpy())
+    # the half-storage operator is the materialized symmetric planes' one
+    np.testing.assert_array_equal(pt.symmetric_planes(S64).numpy(),
+                                  pt.symmetric_planes(S_t).double().numpy())
     x = torch.as_tensor(_r(system[1].shape, 2, np.float64))
     y = torch.as_tensor(_r(system[1].shape, 3, np.float64))
     lhs = float(torch.dot(S64.matvec(x).reshape(-1), y.reshape(-1)))
@@ -224,7 +227,7 @@ def test_refined_solve_symmetric_three_level(system):
     assert res <= 1e-6 and iters > 0 and sweeps > 1
     # the residual is the symmetric float64 operator's, rechecked plainly
     B64 = torch.as_tensor(B).double()
-    R = B64 - plane_spmv_reference(S.sym_planes.double(), X, plan)
+    R = B64 - sym_plane_spmv_reference(S.planes.double(), X, plan)
     assert float(R.norm() / B64.norm()) <= 1.01e-6
 
 
