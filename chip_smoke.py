@@ -145,6 +145,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dune_hdd_tpu_torch.utils.profiling import recording
+
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "plane_spmv": ("dune_hdd_tpu_torch/csrc/plane_spmv.cu", "scripts/pallas_plane_repro.py:83"),
     # the same kernel in its slab mode, on the sharded main path
@@ -161,47 +163,51 @@ _T0 = time.perf_counter()
 _LAST = [_T0]
 # plane_spmv and sym_plane_spmv launches on the paths driven, by
 # instantiation ("nd3_f32", ...) and by instantiation and lattice
-# ("nd3_f64 256x256", ...)
+# ("nd3_f64 256x256", ...), from the program's record
 PATH_LAUNCHES = Counter()
 PATH_LATTICE_LAUNCHES = Counter()
 SYM_PATH_LAUNCHES = Counter()
 SYM_PATH_LATTICE_LAUNCHES = Counter()
-
-
-def _path_kernels():
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv
-    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv
-
-    return ((plane_spmv, PATH_LAUNCHES, PATH_LATTICE_LAUNCHES),
-            (sym_plane_spmv, SYM_PATH_LAUNCHES, SYM_PATH_LATTICE_LAUNCHES))
+_PATH = []  # the recording of the path being driven: [(context, record)]
+_DONE = []  # the record of the last path driven
 
 
 def start_path():
-    """Sets the plane SpMVs' launch counts to 0 just before a path is driven."""
-    for kernel, _, _ in _path_kernels():
-        kernel.launches = 0
-        kernel.case_launches.clear()
-        kernel.lattice_launches.clear()
+    """Starts recording the program's spans and counters
+    (``utils/profiling.py``) just before a path is driven."""
+    context = recording()
+    _PATH.append((context, context.__enter__()))
 
 
 def end_path() -> int:
-    """Reads the plane SpMVs' launch counts just after a path, adds them to
+    """Ends the path's recording, adds the plane SpMVs' launches in it to
     (SYM_)PATH_LAUNCHES by instantiation and to (SYM_)PATH_LATTICE_LAUNCHES
     by instantiation and lattice, and returns their sum (the path's plane
     matvecs, full or half-storage)."""
+    context, rec = _PATH.pop()
+    context.__exit__(None, None, None)
+    _DONE[:] = [rec]
     total = 0
-    for kernel, cases, lattices in _path_kernels():
-        cases.update(kernel.case_launches)
-        lattices.update(kernel.lattice_launches)
-        total += kernel.launches
+    for kernel, cases, lattices in (("plane_spmv", PATH_LAUNCHES, PATH_LATTICE_LAUNCHES),
+                                    ("sym_plane_spmv", SYM_PATH_LAUNCHES,
+                                     SYM_PATH_LATTICE_LAUNCHES)):
+        for key, n in rec.totals_under(f"kernel.{kernel}.").items():
+            lattices[key] += n
+            cases[key.split()[0]] += n
+        total += rec.total(f"kernel.{kernel}")
     return total
 
 
 def sym_launches() -> int:
     """sym_plane_spmv's launches since the last ``start_path``."""
-    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv
+    return _PATH[-1][1].total("kernel.sym_plane_spmv")
 
-    return sym_plane_spmv.launches
+
+def last_path_launches(kernel: str, case: str) -> int:
+    """``kernel``'s launches of instantiation ``case`` ("nd3_f32", ...) on
+    the last path driven."""
+    return sum(n for key, n in _DONE[0].totals_under(f"kernel.{kernel}.").items()
+               if key.split()[0] == case)
 
 
 def log(phase, **fields):
@@ -411,15 +417,15 @@ def phase_probe_vs_plain(dev):
     xb, yb = normal(n + 3), normal(n + 3)
     cases += [("x[1:] y[1:]", xb[1:n + 1], yb[1:n + 1]), ("x[1:] y[:-1]", xb[1:n + 1], yb[:n]),
               ("x[1:] y[3:]", xb[1:n + 1], yb[3:n + 3])]
-    launches, scalar = probe.launches, probe.scalar_launches
     err = 0.0
-    for label, x, y in cases:
-        o, o_ref = probe(x, y), probe_reference(x, y)
-        err = max(err, rel_check(f"probe vs 2x + y ({label})", o, o_ref, 0.0))
-        if not torch.equal(o, o_ref):
-            raise AssertionError(f"probe differs from 2x + y bitwise ({label})")
-    scalar = probe.scalar_launches - scalar
-    vector = probe.launches - launches - scalar
+    with recording() as rec:
+        for label, x, y in cases:
+            o, o_ref = probe(x, y), probe_reference(x, y)
+            err = max(err, rel_check(f"probe vs 2x + y ({label})", o, o_ref, 0.0))
+            if not torch.equal(o, o_ref):
+                raise AssertionError(f"probe differs from 2x + y bitwise ({label})")
+    scalar = rec.total("kernel.probe.scalar")
+    vector = rec.total("kernel.probe") - scalar
     if (vector, scalar) != (4, 2):
         raise AssertionError(f"probe paths: {vector} vector and {scalar} scalar launches, "
                              "expected 4 and 2")
@@ -482,9 +488,9 @@ def phase_structured_path(A, S, B):
     layout must give the same lambda_max."""
     from dune_hdd_tpu_torch.kernels.structured_spmv import structured_spmv
 
-    structured_spmv.launches = 0
-    lam = power_lambda(A.matvec, flat(B) / torch.linalg.norm(B))
-    launches = structured_spmv.launches
+    with recording() as rec:
+        lam = power_lambda(A.matvec, flat(B) / torch.linalg.norm(B))
+    launches = rec.total("kernel.structured_spmv")
     lam_plane = power_lambda(S.matvec, B / torch.linalg.norm(B))
     if not abs(lam - lam_plane) <= 1e-5 * abs(lam_plane):
         raise AssertionError(f"structured path lambda {lam} != plane path {lam_plane}")
@@ -498,10 +504,10 @@ def phase_probe_path(dev):
     inputs (ones, expecting 3.0), launch count set to 0 just before."""
     from dune_hdd_tpu_torch.kernels.probe import probe
 
-    probe.launches = 0
     x = torch.ones((64, 128), device=dev)
-    o = probe(x, x)
-    launches = probe.launches
+    with recording() as rec:
+        o = probe(x, x)
+    launches = rec.total("kernel.probe")
     if not torch.equal(o, torch.full_like(x, 3.0)):
         raise AssertionError("probe(ones, ones) != 3")
     log("probe_path", shape=(64, 128), value=o[0, 0].item(), launches=launches)
@@ -614,9 +620,9 @@ def phase_alt_solvers(dev, u_stencil2, bisections=ALT_BISECTIONS):
     r = torch.randn(A.blocks.shape[0] * 3, generator=gen).to(dev)
     bitwise, err, rel = twin_check("structured deflation", M, twin.precondition(A, s)[1], r, 1e-5)
     del A_st, M, twin
-    structured_spmv.launches = 0
-    runs = [timed_bench_solve(bench, (A, b, s)) for _ in range(3)]
-    launches = structured_spmv.launches
+    with recording() as rec:
+        runs = [timed_bench_solve(bench, (A, b, s)) for _ in range(3)]
+    launches = rec.total("kernel.structured_spmv")
     sol = runs[-1][0]
     res64 = block_residual64(A, b, s, sol.u)
     if not (sol.residual <= 1e-6 and res64 <= 1.01e-6):
@@ -849,15 +855,17 @@ def phase_sharded_main_path(dev, r, S, B):
                            bitwise_equal=torch.equal(y0, y0_ref),
                            library_max_abs_diff=f"{e_lib:.3e}")
         del Ws, Xd, y, W0, E0, y0, y0_ref, A
-    plane_spmv_slab.launches = 0
-    plane_spmv_slab.case_launches.clear()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    X_sh, res = system.solve(tol=1e-6, inner_iters=SHARDED_INNER_ITERS,
-                             outer_max=SHARDED_OUTER_MAX)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(plane_spmv_slab.case_launches)
+    with recording() as rec:
+        t0 = time.perf_counter()
+        X_sh, res = system.solve(tol=1e-6, inner_iters=SHARDED_INNER_ITERS,
+                                 outer_max=SHARDED_OUTER_MAX)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = Counter()
+    for key, n in rec.totals_under("kernel.plane_spmv_slab.").items():
+        launches[key.split()[0]] += n
+    launches = dict(launches)
     B64 = B.double()
     res64 = ((B64 - plane_spmv_reference(S.planes.double(), X_sh, S.plan)).norm()
              / B64.norm()).item()
@@ -977,7 +985,7 @@ def phase_block_sharded(dev, grid, mus, solutions):
     the single-device solve ``solutions[0]``; the halo exchange volume
     against the all-gather volume."""
     from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization
-    from dune_hdd_tpu_torch.parallel import HaloShardedSystem, collectives, halo_exchange_spec
+    from dune_hdd_tpu_torch.parallel import HaloShardedSystem, halo_exchange_spec
     from dune_hdd_tpu_torch.problems import ThermalblockProblem
 
     torch.cuda.reset_peak_memory_stats()
@@ -1004,17 +1012,16 @@ def phase_block_sharded(dev, grid, mus, solutions):
     results, iterations = {}, {}
     for name, system in (("all_gather", rowsplit), ("halo_row_split", halo_rows),
                          ("halo_subdomains", on_dev)):
-        before = collectives.calls.copy()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        u = system.solve(mu, tol=BLOCK_SHARDED_TOL, maxiter=50000)
-        torch.cuda.synchronize()
-        results[name] = (u, time.perf_counter() - t0)
+        with recording() as rec:
+            t0 = time.perf_counter()
+            u = system.solve(mu, tol=BLOCK_SHARDED_TOL, maxiter=50000)
+            torch.cuda.synchronize()
+            results[name] = (u, time.perf_counter() - t0)
         # one all_gather per SpMV (and one of the solution), or one
         # ppermute per neighbour offset and SpMV
-        calls = collectives.calls - before
-        iterations[name] = (calls["all_gather"] - 1 if name == "all_gather"
-                            else calls["ppermute"] // len(system.plan.shifts))
+        iterations[name] = (rec.total("collective.all_gather") - 1 if name == "all_gather"
+                            else rec.total("collective.ppermute") // len(system.plan.shifts))
     u_ag, u_hr, u_hs = (results[k][0] for k in ("all_gather", "halo_row_split",
                                                  "halo_subdomains"))
     spec = halo_exchange_spec(on_dev)
@@ -2022,10 +2029,8 @@ def phase_rb_thermalblock(dev, grid, mus, solutions, seed=6):
     from dune_hdd_tpu_torch.mor.batch import (
         batched_estimates, batched_reduced_solve, stack_parameters)
     from dune_hdd_tpu_torch.problems import ThermalblockProblem
-    from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
 
     torch.cuda.reset_peak_memory_stats()
-    reset_timings()
     t_phase = time.perf_counter()
     d = BlockSWIPDGDiscretization(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"},
                                   ThermalblockProblem((2, 2)), num_partitions=(2, 2), device=dev)
@@ -2043,19 +2048,23 @@ def phase_rb_thermalblock(dev, grid, mus, solutions, seed=6):
     training = sample_randomly(d.parameter_type, 0.1, 1.0, RB_TRAINING, seed=seed)
     opts = {"type": "stencil_cg", "precision": 1e-8, "max_iter": 50000}
     start_path()
+    path = _PATH[-1][1]
     results, seconds = {}, {}
     for name, fn, kw in (
             ("rb", greedy_rb, dict(max_extensions=RB_EXTENSIONS, extension_algorithm="gram_schmidt",
                                    coercivity="min_theta")),
             ("lrbms", greedy_lrbms, dict(max_extensions=LRBMS_EXTENSIONS))):
         t0 = time.perf_counter()
+        first = len(path.spans)
         res = fn(d, training, use_estimator="riesz", error_norm="h1_semi", solver_options=opts,
                  **kw)
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
         results[name] = res
-        split = {k[4:]: sum(v) for k, v in timings().items() if k.startswith("mor.")}
-        reset_timings()
+        split: dict = {}
+        for sp in path.spans[first:]:
+            if sp.name.startswith("mor."):
+                split[sp.name[4:]] = split.get(sp.name[4:], 0.0) + sp.host_s
         log("rb_greedy", model=name, dofs=d.space.num_dofs, training=len(training),
             extensions=res.extensions, basis_size=res.basis.shape[0],
             selected=repr([next(i for i, m in enumerate(training) if m is mu)
@@ -2350,12 +2359,12 @@ def higher_nd_kernels(d, label):
     start_path()
     lam32 = power_lambda(S32.matvec, b.float())
     end_path()
-    f32_launches = plane_spmv.case_launches[case]
+    f32_launches = last_path_launches("plane_spmv", case)
     offsets = d.__dict__["_stencil_order"].offsets
     A = StructuredBlockEll(None, S32.planes.reshape(4, nd, nd, nc).permute(3, 0, 1, 2), offsets)
-    structured_spmv.launches = 0
-    lam_st = power_lambda(A.matvec, flat(b).float())
-    st_launches = structured_spmv.launches
+    with recording() as rec:
+        lam_st = power_lambda(A.matvec, flat(b).float())
+    st_launches = rec.total("kernel.structured_spmv")
     for what, lam, rel in (("plane f32", lam32, 1e-4), ("structured f32", lam_st, 1e-4)):
         if not abs(lam - lam64) <= rel * abs(lam64):
             raise AssertionError(f"{label}: {what} power iteration {lam} != f64 plane {lam64}")
@@ -2410,7 +2419,7 @@ def phase_esv2007_higher(dev, tc, order):
     start_path()
     results = study.run(verbose=False)
     end_path()
-    launches = plane_spmv.case_launches[f"nd{nd}_f64"]
+    launches = last_path_launches("plane_spmv", f"nd{nd}_f64")
     tag = f"esv2007_p{order}"
     log_levels(tag + "_level", study, results, estimator_seconds if types else None)
     for r, info in enumerate(study.level_info):
@@ -2838,14 +2847,14 @@ def phase_thermalblock_3d(dev):
     from dune_hdd_tpu_torch.cli.examples import ThermalblockExample
     from dune_hdd_tpu_torch.discretizations import TensorCGDiscretization
     from dune_hdd_tpu_torch.mor import greedy_rb
-    from dune_hdd_tpu_torch.utils.logging import reset_timings, timings
+    from dune_hdd_tpu_torch.utils.logging import timings
 
     torch.cuda.reset_peak_memory_stats()
-    reset_timings()
     t0 = time.perf_counter()
-    d = ThermalblockExample(device=dev).initialize_tensor(
-        dim=3, num_elements=TB3D_CELLS, num_blocks=(2, 2, 2)).discretization()
-    torch.cuda.synchronize()
+    with recording():
+        d = ThermalblockExample(device=dev).initialize_tensor(
+            dim=3, num_elements=TB3D_CELLS, num_blocks=(2, 2, 2)).discretization()
+        torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n = d.space.num_dofs
     if not (n == (TB3D_CELLS + 1) ** 3 and d.get_operator().num_components == 8):
@@ -2882,12 +2891,12 @@ def phase_thermalblock_3d(dev):
         raise AssertionError(f"mu = 1 against constant diffusion: {diff:.3e}")
 
     training = tb3d_mus(7, TB3D_TRAINING)
-    reset_timings()
     t0 = time.perf_counter()
-    res = greedy_rb(d, training, target_error=1e-8, max_extensions=TB3D_EXTENSIONS,
-                    extension_algorithm="gram_schmidt", error_norm="h1_semi",
-                    solver_options=TB3D_OPTS)
-    torch.cuda.synchronize()
+    with recording():
+        res = greedy_rb(d, training, target_error=1e-8, max_extensions=TB3D_EXTENSIONS,
+                        extension_algorithm="gram_schmidt", error_norm="h1_semi",
+                        solver_options=TB3D_OPTS)
+        torch.cuda.synchronize()
     greedy_s = time.perf_counter() - t0
     split = {k[4:]: sum(v) for k, v in timings().items() if k.startswith("mor.")}
     errs = [e for e in res.max_errors if e >= 0]

@@ -91,6 +91,7 @@ from .ops.swipdg import swipdg_face_blocks
 from .problems.default import DefaultProblem
 from .testcases._spe10_channel import CHANNEL
 from .utils.logging import timed
+from .utils.profiling import span
 
 __all__ = ["build_spe10_bench", "run_spe10_bench", "Spe10Bench", "BenchSolution",
            "stencil2_roofline", "block_provenance_check", "block_system",
@@ -330,9 +331,11 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
         to_soa = geo.to_soa
 
         def assemble(field: torch.Tensor):
-            S = assemble_structured_spe10(geo.tensors, geo.broadcast(field.to(torch.float32)))
-            S = StencilBlockEll(S.planes, S.plan, spmv)
-            return scale_planes(S, structured_rhs(geo.tensors, force))
+            with span("assemble", device=True):
+                S = assemble_structured_spe10(geo.tensors,
+                                              geo.broadcast(field.to(torch.float32)))
+                S = StencilBlockEll(S.planes, S.plan, spmv)
+                return scale_planes(S, structured_rhs(geo.tensors, force))
 
         def precondition(S: StencilBlockEll, s: torch.Tensor):
             if settings.symmetric:
@@ -346,7 +349,8 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
             return S, deflation_pc(S, 1.0 / s, sm)
 
         def solve(S: StencilBlockEll, B: torch.Tensor, s: torch.Tensor) -> BenchSolution:
-            S, M = precondition(S, s)
+            with span("precond.build", device=True):
+                S, M = precondition(S, s)
             X, res, iters, sweeps = refined(S, B, M)
             return BenchSolution((X * s.to(X.dtype)).reshape(-1)[geo.from_soa], res, iters,
                                  sweeps)
@@ -402,7 +406,8 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
             return BenchSolution(u * s, float(res), iters, 1)
 
     def fn(field: torch.Tensor) -> BenchSolution:
-        return solve(*assemble(field))
+        with span("solve", device=True):
+            return solve(*assemble(field))
 
     return Spe10Bench(fn, field, num_dofs, assemble, solve, precondition, to_soa, settings,
                       mid_shape, order.offsets, preconditioner)
@@ -557,8 +562,8 @@ def block_system(bdisc, mu=None):
     """(matvec, rhs) of the global system of a BlockSWIPDGDiscretization
     assembled from its parts: the per-subdomain local operators and
     functionals plus the pairwise coupling operators, frozen at ``mu`` and
-    applied on the discretization's device.  Builds every part (host phases
-    "block.locals" and "block.couplings" of ``utils.logging.timings``)."""
+    applied on the discretization's device.  Builds every part (spans
+    "block.locals" and "block.couplings" of the record while recording)."""
     dev = bdisc.device
     S = bdisc.num_subdomains()
     dofs = [torch.as_tensor(bdisc._local_dof_map(ss)).to(dev) for ss in range(S)]

@@ -67,6 +67,7 @@ from ..ops.swipdg import (
 from ..parameters import ProductFunctional
 from ..problems.interfaces import Problem
 from ..utils.logging import timed
+from ..utils.profiling import span, upload
 from .base import StationaryDiscretization
 from .cg import _parts
 
@@ -310,7 +311,12 @@ class SWIPDGDiscretization(StationaryDiscretization):
 
     def uncached_solve(self, mu, options=None):
         """Adds "block_cg[.jacobi]" and "stencil_cg" (see the module
-        docstring) to the solver types of ``la/solvers.py``."""
+        docstring) to the solver types of ``la/solvers.py``.  Runs in a
+        ``solve`` span (``utils/profiling.py``)."""
+        with span("solve", device=True):
+            return self._uncached_solve(mu, options)
+
+    def _uncached_solve(self, mu, options):
         opts = dict(options or {})
         if str(opts.get("type", "")) == "stencil_cg":
             u = self._stencil_solve(mu, opts)
@@ -347,8 +353,8 @@ class SWIPDGDiscretization(StationaryDiscretization):
         A_s, b_s, s = symmetric_diagonal_scaling(A, self.freeze_rhs(mu))
         S = StencilBlockEll.from_block_ell(A_s, order)
         maps = soa_index_maps(order, S.nd)
-        to_soa = torch.as_tensor(maps.to_soa, dtype=torch.long).to(self.device)
-        from_soa = torch.as_tensor(maps.from_soa, dtype=torch.long).to(self.device)
+        to_soa = upload(maps.to_soa, self.device, torch.long)
+        from_soa = upload(maps.from_soa, self.device, torch.long)
         KY, KX = order.lattice
         return StencilSystem(S, b_s[to_soa].reshape(S.nd, 8, KY, KX), s, to_soa, from_soa)
 
@@ -357,18 +363,20 @@ class SWIPDGDiscretization(StationaryDiscretization):
         has no structured cell order."""
         from ..la.stencil import jacobi_smoother, stencil_deflation_preconditioner, stencil_pcg
 
-        system = self.stencil_system(mu)
+        with span("freeze", device=True):
+            system = self.stencil_system(mu)
         if system is None:
             return None
         S, B, s = system.S, system.B, system.s
         macro = opts.get("macro")
-        if macro is not None:
-            # weighted deflation space Z_w = diag(1/s) Z: the scaled system's
-            # near-kernel is D^{1/2} 1
-            w = (1.0 / s).to(B.dtype)[system.to_soa].reshape(B.shape)
-            M = stencil_deflation_preconditioner(S, tuple(macro), weight=w)
-        else:
-            M = jacobi_smoother(S)
+        with span("precond.build", device=True):
+            if macro is not None:
+                # weighted deflation space Z_w = diag(1/s) Z: the scaled
+                # system's near-kernel is D^{1/2} 1
+                w = (1.0 / s).to(B.dtype)[system.to_soa].reshape(B.shape)
+                M = stencil_deflation_preconditioner(S, tuple(macro), weight=w)
+            else:
+                M = jacobi_smoother(S)
         bn = torch.linalg.norm(B)
         # the relative tolerance clamped to what the working dtype resolves
         rtol = max(float(opts.get("precision", 1e-10)), 10.0 * torch.finfo(B.dtype).eps)

@@ -10,9 +10,10 @@ Dirichlet projection and shift with coefficient cross-products
 solver registry and the (options, mu) solve cache.  Everything is assembled
 on ``device`` (the card unless the caller asks for the CPU) on one volume
 pattern, built once and shared by the operator, the products and the
-constraints.  The set-up steps are timed in ``utils.logging``'s registry:
-"tensor_cg.pattern", "tensor_cg.operator", "tensor_cg.rhs",
-"tensor_cg.products" and "tensor_cg.constraints".
+constraints.  The set-up steps are spans of the port's record while
+recording (``utils/profiling.py``): "tensor_cg.pattern",
+"tensor_cg.operator", "tensor_cg.rhs", "tensor_cg.products" and
+"tensor_cg.constraints".
 """
 from __future__ import annotations
 

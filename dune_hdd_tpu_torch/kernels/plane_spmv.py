@@ -22,11 +22,11 @@ mode, and ``plane_spmv_slab_reference`` its plain version.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import build
 
 __all__ = ["plane_spmv", "plane_spmv_reference", "plane_spmv_slab",
@@ -210,37 +210,26 @@ def plane_spmv(W: torch.Tensor, X: torch.Tensor, plan) -> torch.Tensor:
     """Y = A X for the stencil operator with planes W (see module docstring).
 
     ``plan``: 8 x 3 tuple of (ks, dy, dx).  On CUDA tensors this launches
-    the kernel and counts the launch in ``plane_spmv.launches``, per
-    instantiation in ``plane_spmv.case_launches["nd<nd>_<f32|f64>"]`` and
-    per instantiation and lattice in
-    ``plane_spmv.lattice_launches["nd<nd>_<f32|f64> <KY>x<KX>"]``; it
-    raises ValueError for a lattice or an alignment the kernel does not
-    take (``plane_geometry``).  On CPU tensors it is
-    ``plane_spmv_reference``."""
+    the kernel, counted while recording (``utils/profiling.count_launch``)
+    in ``kernel.plane_spmv`` and per instantiation and lattice in
+    ``kernel.plane_spmv.nd<nd>_<f32|f64> <KY>x<KX>``; it raises ValueError
+    for a lattice or an alignment the kernel does not take
+    (``plane_geometry``).  On CPU tensors it is ``plane_spmv_reference``."""
     _check(W, X)
     if W.device.type == "cpu":
         return plane_spmv_reference(W, X, plan)
     Y = _launch(W, X, plan, slab=False)
-    nd, KY, KX = W.shape[1], W.shape[4], W.shape[5]
-    case = f"nd{nd}_{_DTYPES[W.dtype]}"
-    plane_spmv.launches += 1
-    plane_spmv.case_launches[case] += 1
-    plane_spmv.lattice_launches[f"{case} {KY}x{KX}"] += 1
+    count_launch("plane_spmv", W)
     return Y
-
-
-plane_spmv.launches = 0
-plane_spmv.case_launches = Counter()
-plane_spmv.lattice_launches = Counter()
 
 
 def plane_spmv_slab(W: torch.Tensor, X_ext: torch.Tensor, plan) -> torch.Tensor:
     """Y = A X on one x-slab: W [4, nd, nd, 8, KY, Wd], X_ext [nd, 8, KY,
     Wd + 4] (the slab with SLAB_HALO columns of each ring neighbour) ->
     Y [nd, 8, KY, Wd].  On CUDA tensors (Wd a multiple of 4) this
-    launches the plane kernel in its slab mode and counts the launch in
-    ``plane_spmv_slab.launches`` and per instantiation in
-    ``plane_spmv_slab.case_launches["nd<nd>_<f32|f64>"]``; on CPU tensors
+    launches the plane kernel in its slab mode, counted while recording in
+    ``kernel.plane_spmv_slab`` and per instantiation and slab lattice in
+    ``kernel.plane_spmv_slab.nd<nd>_<f32|f64> <KY>x<Wd>``; on CPU tensors
     it is ``plane_spmv_slab_reference``."""
     _check(W, X_ext, SLAB_HALO)
     if W.device.type == "cpu":
@@ -248,10 +237,5 @@ def plane_spmv_slab(W: torch.Tensor, X_ext: torch.Tensor, plan) -> torch.Tensor:
     if W.shape[5] % 4:  # the planes' TMA rows must be 16-byte multiples
         raise ValueError(f"the slab width must be a multiple of 4, got {W.shape[5]}")
     Y = _launch(W, X_ext, plan, slab=True)
-    plane_spmv_slab.launches += 1
-    plane_spmv_slab.case_launches[f"nd{W.shape[1]}_{_DTYPES[W.dtype]}"] += 1
+    count_launch("plane_spmv_slab", W)
     return Y
-
-
-plane_spmv_slab.launches = 0
-plane_spmv_slab.case_launches = Counter()

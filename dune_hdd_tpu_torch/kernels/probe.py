@@ -10,7 +10,7 @@ bytes, with a scalar head and tail, and runs the whole range scalar
 otherwise.  When x and y share an offset, ``probe`` allocates o at that
 offset too, so only inputs at different offsets (``x[1:]`` beside a fresh
 ``y``) take the scalar path; those launches are counted again in
-``probe.scalar_launches``.
+``kernel.probe.scalar`` while recording.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.profiling import count, count_launch
 from . import build
 
 __all__ = ["probe", "probe_reference"]
@@ -48,8 +49,8 @@ def _output_like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def probe(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """2 x + y for float32 tensors of one shape and device.  On CUDA tensors
-    this launches the kernel (counted in ``probe.launches``, and in
-    ``probe.scalar_launches`` when the offsets force the scalar path); on CPU
+    this launches the kernel (counted while recording in ``kernel.probe``,
+    and in ``kernel.probe.scalar`` when the offsets force the scalar path); on CPU
     tensors it is ``probe_reference``."""
     if x.shape != y.shape:
         raise ValueError(f"shapes differ: {tuple(x.shape)} and {tuple(y.shape)}")
@@ -72,11 +73,7 @@ def probe(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                     ctypes.byref(vector_path))
     if err != 0:
         raise RuntimeError(f"probe launch failed: cudaError {err}")
-    probe.launches += 1
+    count_launch("probe")
     if not vector_path.value:
-        probe.scalar_launches += 1
+        count("kernel.probe.scalar")
     return o
-
-
-probe.launches = 0
-probe.scalar_launches = 0

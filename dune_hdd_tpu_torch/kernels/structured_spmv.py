@@ -20,6 +20,7 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import build
 
 __all__ = ["structured_spmv", "structured_spmv_reference", "structured_neighbor_fields"]
@@ -88,7 +89,7 @@ def structured_spmv(planes: torch.Tensor, x: torch.Tensor, offsets) -> torch.Ten
     """y = A x for the structured block operator (see module docstring).
 
     ``offsets``: 8 x 3 tuple of ints.  On CUDA tensors this launches the
-    kernel (and counts the launch in ``structured_spmv.launches``); on CPU
+    kernel (counted while recording in ``kernel.structured_spmv``); on CPU
     tensors it is ``structured_spmv_reference``."""
     _check(planes, x)
     if planes.device.type == "cpu":
@@ -103,8 +104,5 @@ def structured_spmv(planes: torch.Tensor, x: torch.Tensor, offsets) -> torch.Ten
                     _offsets_array(offsets, nc), planes.device.index, stream)
     if err != 0:
         raise RuntimeError(f"structured_spmv launch failed: cudaError {err}")
-    structured_spmv.launches += 1
+    count_launch("structured_spmv")
     return y
-
-
-structured_spmv.launches = 0

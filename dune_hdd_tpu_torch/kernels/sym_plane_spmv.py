@@ -17,11 +17,11 @@ kernel (``csrc/sym_plane_spmv.cu``), CPU tensors to
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import build
 from .plane_spmv import _DTYPES, _check
 
@@ -143,11 +143,10 @@ def _kernel(dtype: torch.dtype, nd: int):
 def sym_plane_spmv(W: torch.Tensor, X: torch.Tensor, plan) -> torch.Tensor:
     """Y = A X for the symmetric operator that the half storage of planes W
     defines (module docstring).  ``plan``: 8 x 3 tuple of (ks, dy, dx).  On
-    CUDA tensors this launches the kernel and counts the launch in
-    ``sym_plane_spmv.launches``, per instantiation in
-    ``sym_plane_spmv.case_launches["nd<nd>_<f32|f64>"]`` and per
+    CUDA tensors this launches the kernel, counted while recording
+    (``utils/profiling.count_launch``) in ``kernel.sym_plane_spmv`` and per
     instantiation and lattice in
-    ``sym_plane_spmv.lattice_launches["nd<nd>_<f32|f64> <KY>x<KX>"]``.  On
+    ``kernel.sym_plane_spmv.nd<nd>_<f32|f64> <KY>x<KX>``.  On
     CPU tensors it is ``sym_plane_spmv_reference``.  Raises ValueError for
     nd outside {3, 6, 10} or a plan without reverse edges."""
     _check(W, X)
@@ -163,13 +162,5 @@ def sym_plane_spmv(W: torch.Tensor, X: torch.Tensor, plan) -> torch.Tensor:
                                W.device.index, stream)
     if err != 0:
         raise RuntimeError(f"sym_plane_spmv launch failed: cudaError {err}")
-    case = f"nd{nd}_{_DTYPES[W.dtype]}"
-    sym_plane_spmv.launches += 1
-    sym_plane_spmv.case_launches[case] += 1
-    sym_plane_spmv.lattice_launches[f"{case} {KY}x{KX}"] += 1
+    count_launch("sym_plane_spmv", W)
     return Y
-
-
-sym_plane_spmv.launches = 0
-sym_plane_spmv.case_launches = Counter()
-sym_plane_spmv.lattice_launches = Counter()

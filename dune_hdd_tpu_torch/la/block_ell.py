@@ -17,6 +17,7 @@ import torch
 
 from ..kernels.structured_spmv import structured_neighbor_fields, structured_spmv
 from ..utils.logging import timed
+from ..utils.profiling import upload
 
 __all__ = [
     "BlockEllMatrix",
@@ -123,7 +124,7 @@ class StructuredBlockEll:
         block array)."""
         cell_idx, slot_idx = _structured_gather(A, order)
         dev = A.blocks.device
-        blocks = A.blocks[torch.as_tensor(cell_idx).to(dev), torch.as_tensor(slot_idx).to(dev)]
+        blocks = A.blocks[upload(cell_idx, dev), upload(slot_idx, dev)]
         neighbors = np.asarray(order.perm)[np.asarray(A.neighbors)[cell_idx, slot_idx]]
         return cls(neighbors.astype(np.int32), blocks, order.offsets, spmv)
 

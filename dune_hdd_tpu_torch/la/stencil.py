@@ -14,6 +14,14 @@ geometric slot-s neighbour is the subclass-``k_src`` cell at
 The SpMVs are the hand-written kernels ``kernels/plane_spmv`` and, for the
 half-storage symmetric operator, ``kernels/sym_plane_spmv``; everything else
 is plain torch on the planes' device.
+
+Spans and counters (``utils/profiling.py``; recorded only while recording):
+``pcg`` around each ``stencil_pcg`` with its ``pcg.iterations``,
+``precond.apply`` and ``matvec`` around each application of M and A in it,
+``refine.residual`` around each float64 residual of the refinement, and
+``host.syncs`` at each point where the host waits for the device: a read of
+a device value, ``torch.linalg``'s check of its result, and a copy from
+host memory to the device.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 
 from ..kernels.plane_spmv import plane_spmv
 from ..kernels.sym_plane_spmv import sym_forward_edges, sym_plane_spmv
+from ..utils.profiling import count, host_read, span, upload
 from .block_ell import BlockEllMatrix, StructuredBlockEll, inv3x3
 
 __all__ = [
@@ -39,6 +48,13 @@ __all__ = [
     "stencil_pcg",
     "stencil_refined_solve",
 ]
+
+
+def _inv(A: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.inv``, which reads its result's error code on the host
+    (a wait for the device, counted in ``host.syncs``)."""
+    count("host.syncs")
+    return torch.linalg.inv(A)
 
 
 def stencil_plan(order) -> Tuple[Tuple[Tuple[int, int, int], ...], ...]:
@@ -200,7 +216,7 @@ def jacobi_smoother(A: StencilBlockEll) -> Callable:
     closed-form 3x3 inverse for P1, ``torch.linalg.inv`` above)."""
     D = torch.movedim(A.diagonal_blocks(), (0, 1), (-2, -1))  # [8, KY, KX, nd, nd]
     nd = A.nd
-    Dinv = torch.movedim(inv3x3(D) if nd == 3 else torch.linalg.inv(D), (-2, -1), (0, 1))
+    Dinv = torch.movedim(inv3x3(D) if nd == 3 else _inv(D), (-2, -1), (0, 1))
 
     def apply(R: torch.Tensor) -> torch.Tensor:
         # fused multiply-adds in j order: the rounding of the reference's
@@ -314,7 +330,7 @@ def _crossing_masks(f: int, d: int, n: int) -> dict:
 def _mask_vectors(f: int, d: int, n: int, dtype: torch.dtype, device: torch.device) -> tuple:
     """((v, 0/1 mask on the device), ...) of ``_crossing_masks``, copied to
     the device once per lattice (a copy from the host waits for the device)."""
-    return tuple((v, torch.as_tensor(m, dtype=dtype).to(device))
+    return tuple((v, upload(m, device, dtype))
                  for v, m in _crossing_masks(f, d, n).items())
 
 
@@ -443,7 +459,7 @@ def _bands_to_dense(bands: dict, my: int, mx: int) -> torch.Tensor:
         src.append(i * n + np.flatnonzero(valid))  # in the stacked [n_bands, my, mx]
         dst.append((ax * my + ay)[valid] * n + (bx * my + by)[valid])
     vals = torch.stack(list(bands.values())).to(torch.float32).reshape(-1)
-    idx = torch.as_tensor(np.stack([np.concatenate(src), np.concatenate(dst)])).to(vals.device)
+    idx = upload(np.stack([np.concatenate(src), np.concatenate(dst)]), vals.device)
     E = torch.zeros(n * n, dtype=torch.float32, device=vals.device)
     E[idx[1]] = vals[idx[0]]
     return E.reshape(n, n)
@@ -494,8 +510,9 @@ def _block_tridiag_solve(B: torch.Tensor, C: torch.Tensor,
     C[n-1] == 0, R [n,m,N]; n must be a power of two."""
     n = B.shape[0]
     if n == 1:
+        count("host.syncs")  # torch.linalg.solve checks its result on the host
         return torch.linalg.solve(B[0], R[0])[None]
-    Binv_odd = torch.linalg.inv(B[1::2])   # [n/2, m, m]
+    Binv_odd = _inv(B[1::2])   # [n/2, m, m]
     CL = C[0::2]   # C[2e]   : even 2e   -> odd 2e+1
     CRo = C[1::2]  # C[2e+1] : odd 2e+1  -> even 2e+2  (last is C[n-1] = 0)
     G = CL @ Binv_odd
@@ -555,7 +572,7 @@ def _coarse_inverse(E: torch.Tensor, newton_schulz: int = 3) -> Callable:
     (float32 LU + Newton-Schulz polish)."""
     d = torch.sqrt(torch.clamp(torch.diagonal(E).abs(), min=1e-30))
     Es = ((E / d[:, None]) / d[None, :]).to(torch.float32)
-    Einv = _newton_schulz(Es, torch.linalg.inv(Es), newton_schulz)
+    Einv = _newton_schulz(Es, _inv(Es), newton_schulz)
 
     def solve(rc):
         y = Einv @ (rc / d).to(torch.float32)
@@ -591,8 +608,8 @@ def _coarse_E(A: StencilBlockEll, agg: _Aggregation,
     if P is None:
         P = A.planes.sum(dim=(1, 2))
     dev = P.device
-    flat = torch.as_tensor((rows * n_agg + cols).reshape(-1)).to(dev)
-    sums = P.reshape(-1) * torch.as_tensor(valid.reshape(-1)).to(dev, P.dtype)
+    flat = upload((rows * n_agg + cols).reshape(-1), dev)
+    sums = P.reshape(-1) * upload(valid.reshape(-1), dev, P.dtype)
     E = torch.zeros(n_agg * n_agg, dtype=P.dtype, device=dev)
     return E.index_put_((flat,), sums, accumulate=True).reshape(n_agg, n_agg)
 
@@ -616,8 +633,8 @@ def _bands_to_blocktridiag(bands: dict, mx: int, my: int):
         V = vec.reshape(mx, my)
         by = ay + vy
         ok = (by >= 0) & (by < my)
-        r = torch.as_tensor(ay[ok]).to(dev)
-        c = torch.as_tensor(by[ok]).to(dev)
+        r = upload(ay[ok], dev)
+        c = upload(by[ok], dev)
         if vx == 0:
             B[:, r, c] += V[:, r]
         elif vx == 1:  # row (ax, ay) -> col (ax+1, ay+vy), stored at block ax
@@ -634,14 +651,14 @@ def _block_tridiag_factor(B: torch.Tensor, C: torch.Tensor) -> list:
     streams far less than a dense inverse would."""
     levels = []
     while B.shape[0] > 1:
-        Binv_odd = torch.linalg.inv(B[1::2])
+        Binv_odd = _inv(B[1::2])
         CL, CRo = C[0::2], C[1::2]
         G = CL @ Binv_odd
         H = CRo.transpose(-1, -2) @ Binv_odd
         B = B[0::2] - G @ CL.transpose(-1, -2) - _shift_down(H @ CRo)
         C = -(G @ CRo)
         levels.append((Binv_odd, G, H, CL, CRo))
-    levels.append(torch.linalg.inv(B[0]))
+    levels.append(_inv(B[0]))
     return levels
 
 
@@ -756,7 +773,7 @@ def _power_lambda_max(matvec: Callable, precond: Callable, shape, dtype,
     """Power iteration for lambda_max(precond o matvec) from the reference's
     numpy start vector (set-up time)."""
     rng = np.random.default_rng(seed)
-    v = torch.as_tensor(rng.standard_normal(shape), dtype=dtype).to(device)
+    v = upload(rng.standard_normal(shape), device, dtype)
     v = v / torch.linalg.norm(v)
     for _ in range(iters):
         w = precond(matvec(v))
@@ -773,7 +790,7 @@ def _cheb_apply(matvec: Callable, precond: Callable, degree: int, lmax,
     a PCG preconditioner.  The recurrence's scalars are taken once, on the
     host, in lmax's precision (one sync at set-up)."""
     f = np.float32 if lmax.dtype == torch.float32 else np.float64
-    lmax = f(lmax.item()) * f(lmax_safety)
+    lmax = f(host_read(lmax)) * f(lmax_safety)
     lmin = lmax / f(ratio)
     theta = f(0.5) * (lmax + lmin)
     delta = f(0.5) * (lmax - lmin)
@@ -984,42 +1001,51 @@ def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
 
     Convergence is checked (one host sync) before every block of ``unroll``
     iterations, so the count is a multiple of ``unroll`` and may pass
-    ``maxiter`` by less than ``unroll``."""
-    adt = B.dtype
-    vdt = vec_dtype or adt
-    dt = dot_dtype or adt
+    ``maxiter`` by less than ``unroll``.  Runs in a ``pcg`` span, each
+    application of M in a ``precond.apply`` span and of A in a ``matvec``
+    span; counts its iterations in ``pcg.iterations``."""
+    with span("pcg", device=True):
+        adt = B.dtype
+        vdt = vec_dtype or adt
+        dt = dot_dtype or adt
 
-    def apply_in_adt(op, V):
-        return op(V.to(adt)).to(vdt)
+        def apply_in_adt(op, V):
+            return op(V.to(adt)).to(vdt)
 
-    def vdot(a, b):
-        return _dot(a.to(dt), b.to(dt))
+        def precond(V):
+            with span("precond.apply"):
+                return apply_in_adt(M, V)
 
-    B = B.to(vdt)
-    X = torch.zeros_like(B)
-    Z = apply_in_adt(M, B)
-    P = Z
-    rz = vdot(B, Z)
-    R = B
-    stop2 = torch.tensor(rtol * rtol, dtype=dt).item()  # rounded like the dots
-    k = 0
-    while k < maxiter and vdot(R, R).item() > stop2:
-        for _ in range(max(1, int(unroll))):
-            AP = apply_in_adt(A.matvec, P)
-            pap = vdot(P, AP)
-            ok = pap > 0
-            alpha = torch.where(ok, rz / torch.where(ok, pap, torch.ones_like(pap)),
-                                torch.zeros_like(pap)).to(vdt)
-            X = X + alpha * P
-            R = R - alpha * AP
-            Z = apply_in_adt(M, R)
-            rz_new = vdot(R, Z)
-            ok = rz > 0
-            beta = torch.where(ok, rz_new / torch.where(ok, rz, torch.ones_like(rz)),
-                               torch.zeros_like(rz)).to(vdt)
-            P = Z + beta * P
-            rz = rz_new
-            k += 1
+        def vdot(a, b):
+            return _dot(a.to(dt), b.to(dt))
+
+        B = B.to(vdt)
+        X = torch.zeros_like(B)
+        Z = precond(B)
+        P = Z
+        rz = vdot(B, Z)
+        R = B
+        stop2 = torch.tensor(rtol * rtol, dtype=dt).item()  # rounded like the dots (host)
+        k = 0
+        while k < maxiter and host_read(vdot(R, R)) > stop2:
+            for _ in range(max(1, int(unroll))):
+                with span("matvec"):
+                    AP = apply_in_adt(A.matvec, P)
+                pap = vdot(P, AP)
+                ok = pap > 0
+                alpha = torch.where(ok, rz / torch.where(ok, pap, torch.ones_like(pap)),
+                                    torch.zeros_like(pap)).to(vdt)
+                X = X + alpha * P
+                R = R - alpha * AP
+                Z = precond(R)
+                rz_new = vdot(R, Z)
+                ok = rz > 0
+                beta = torch.where(ok, rz_new / torch.where(ok, rz, torch.ones_like(rz)),
+                                   torch.zeros_like(rz)).to(vdt)
+                P = Z + beta * P
+                rz = rz_new
+                k += 1
+        count("pcg.iterations", k)
     return X, k
 
 
@@ -1032,11 +1058,11 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     (X float64, true relative residual, total inner iterations, outer
     sweeps).  Each sweep solves for the correction of the exact float64
     residual, which is recomputed with the float64 SpMV (of the symmetric
-    operator when A is symmetric).  ``dot_dtype``/``vec_dtype`` go to
-    :func:`stencil_pcg`."""
+    operator when A is symmetric), in a ``refine.residual`` span.
+    ``dot_dtype``/``vec_dtype`` go to :func:`stencil_pcg`."""
     A64 = A.astype(torch.float64)
     B64 = B.to(torch.float64)
-    bnorm = torch.linalg.norm(B64).item()
+    bnorm = host_read(torch.linalg.norm(B64))
     target = tol * max(bnorm, 1e-300)
     X = torch.zeros_like(B64)
     R64 = B64
@@ -1048,8 +1074,11 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
                              rtol=inner_rtol, maxiter=inner_iters, unroll=unroll,
                              dot_dtype=dot_dtype, vec_dtype=vec_dtype)
         X = X + dX.to(torch.float64) * scale
-        R64 = B64 - A64.matvec(X)
-        rnorm = torch.linalg.norm(R64).item()
+        with span("refine.residual", device=True):
+            with span("matvec"):
+                AX = A64.matvec(X)
+            R64 = B64 - AX
+            rnorm = host_read(torch.linalg.norm(R64))
         sweeps += 1
         iters += ki
     return X, rnorm / max(bnorm, 1e-300), iters, sweeps

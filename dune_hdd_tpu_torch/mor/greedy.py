@@ -12,8 +12,8 @@ reference's ``thermalblock_main.py``:
 
 The basis lives on the discretization's device in float64; the candidate
 errors go to the host, where ``np.argmax`` picks the worst one.  Each step
-is timed in ``utils.logging``'s registry: "mor.snapshot", "mor.reduce",
-"mor.offline" and "mor.estimate".
+is a span of the port's record while recording (``utils/profiling.py``):
+"mor.snapshot", "mor.reduce", "mor.offline" and "mor.estimate".
 """
 from __future__ import annotations
 

@@ -27,20 +27,19 @@ collective adds one ``torch.distributed`` leg after the local one:
 CPU tensors, NCCL for CUDA tensors) does the sending; an operation the
 backend lacks raises.
 
-``calls`` counts the calls per kind, so tests can assert what the
-reference's tests read from the compiled HLO ("collective-permute, no
-all-gather").
+Each call is counted per kind in ``collective.<kind>`` while recording
+(``utils/profiling.py``), so tests can assert what the reference's tests
+read from the compiled HLO ("collective-permute, no all-gather").
 """
 from __future__ import annotations
 
-from collections import Counter
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["ProcessSpan", "psum", "pmax", "all_gather", "ppermute", "calls"]
+from ..utils.profiling import count
 
-calls: Counter = Counter()
+__all__ = ["ProcessSpan", "psum", "pmax", "all_gather", "ppermute"]
 
 
 class ProcessSpan(NamedTuple):
@@ -80,13 +79,13 @@ def _reduce(xs, op, span: Optional[ProcessSpan], dist_op) -> List[torch.Tensor]:
 
 def psum(xs: Sequence[torch.Tensor], span: Optional[ProcessSpan] = None) -> List[torch.Tensor]:
     """Sum over the axis, in shard order (then across processes)."""
-    calls["psum"] += 1
+    count("collective.psum")
     return _reduce(xs, torch.add, span, lambda dist: dist.ReduceOp.SUM)
 
 
 def pmax(xs: Sequence[torch.Tensor], span: Optional[ProcessSpan] = None) -> List[torch.Tensor]:
     """Elementwise maximum over the axis."""
-    calls["pmax"] += 1
+    count("collective.pmax")
     return _reduce(xs, torch.maximum, span, lambda dist: dist.ReduceOp.MAX)
 
 
@@ -94,7 +93,7 @@ def all_gather(xs: Sequence[torch.Tensor], tiled: bool = False,
                span: Optional[ProcessSpan] = None) -> List[torch.Tensor]:
     """Every shard's tensor on every shard: concatenated along the first
     axis (``tiled``) or stacked in a new first axis."""
-    calls["all_gather"] += 1
+    count("collective.all_gather")
     join = torch.cat if tiled else torch.stack
 
     def local(device):
@@ -116,7 +115,7 @@ def ppermute(xs: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]],
     """Shard ``dst`` receives a copy of shard ``src``'s tensor for each
     (src, dst) of ``perm`` (axis indices, across processes when the axis
     spans them); shards that receive nothing get zeros."""
-    calls["ppermute"] += 1
+    count("collective.ppermute")
     local = len(xs)
     offset = 0 if span is None else span.index * local
     out: List[Optional[torch.Tensor]] = [None] * local

@@ -2,10 +2,10 @@
 
 Counterpart of ``dune_hdd_tpu/utils/logging.py``: a logger factory with the
 reference's [logging] flags (info / debug / file, discreteproblem.hh:104-115),
-a ``timed`` context manager that records each phase's seconds in a
-process-wide registry that reports read (and, given a logger, writes the
-reference's "<phase>... done (took Xs)" lines), and a scoped logger with
-elapsed-time prefixes.
+a ``timed`` context manager that opens a span of the phase in the port's
+record (``utils/profiling.py``; kept only while recording) and, given a
+logger, writes the reference's "<phase>... done (took Xs)" lines, and a
+scoped logger with elapsed-time prefixes.
 """
 from __future__ import annotations
 
@@ -13,13 +13,14 @@ import logging
 import sys
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from typing import Optional
 
 import torch
 
-__all__ = ["create_logger", "timed", "timings", "reset_timings", "TimedLogger"]
+from . import profiling
+from .profiling import reset_timings, timings
 
-_TIMINGS: Dict[str, List[float]] = {}
+__all__ = ["create_logger", "timed", "timings", "reset_timings", "TimedLogger"]
 
 
 def create_logger(config: Optional[dict] = None, name: str = "dune_hdd_tpu_torch"
@@ -46,28 +47,22 @@ def create_logger(config: Optional[dict] = None, name: str = "dune_hdd_tpu_torch
 
 @contextmanager
 def timed(phase: str, logger: Optional[logging.Logger] = None, sync=None):
-    """Records the seconds of the phase.  ``sync``: a device to synchronize
-    before the clock stops, so the time covers the phase's device work."""
+    """The phase as a span of the record, and its "<phase>..." log lines.
+    ``sync``: a device to synchronize before the clock stops, so the time
+    covers the phase's device work (only where a time is taken: while
+    recording or for the logger)."""
     if logger:
         logger.info(f"{phase}...")
     t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync is not None and torch.device(sync).type == "cuda":
-            torch.cuda.synchronize(sync)
-        dt = time.perf_counter() - t0
-        _TIMINGS.setdefault(phase, []).append(dt)
-        if logger:
-            logger.info(f"{phase}... done (took {dt:.3f}s)")
-
-
-def timings() -> Dict[str, List[float]]:
-    return dict(_TIMINGS)
-
-
-def reset_timings():
-    _TIMINGS.clear()
+    with profiling.span(phase):
+        try:
+            yield
+        finally:
+            if (sync is not None and (logger or profiling._ON)
+                    and torch.device(sync).type == "cuda"):
+                torch.cuda.synchronize(sync)
+    if logger:
+        logger.info(f"{phase}... done (took {time.perf_counter() - t0:.3f}s)")
 
 
 class TimedLogger:

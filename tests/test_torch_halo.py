@@ -29,9 +29,9 @@ from dune_hdd_tpu_torch.parallel import (  # noqa: E402
     halo_exchange_spec,
     make_device_mesh,
 )
-from dune_hdd_tpu_torch.parallel import collectives  # noqa: E402
 from dune_hdd_tpu_torch.parallel.halo import _halo_cg, halo_parameter_sweep  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MU = [0.1, 1.0, 0.5, 2.0]
@@ -140,11 +140,11 @@ def test_cg_exchanges_by_ppermute_and_gathers_nothing(halo_system):
     th_op = halo_system.thetas(halo_system.op_coefficients, _mu(MU))
     th_rhs = halo_system.thetas(halo_system.rhs_coefficients, _mu(MU))
     vals, b = halo_system._frozen(0, th_op, th_rhs)
-    before = dict(collectives.calls)
-    _halo_cg([halo_system._matvec_body(0)], [vals], [halo_system.cols_ext[0]], [b], None,
-             1e-12, 5000)
-    assert collectives.calls["ppermute"] > before.get("ppermute", 0)
-    assert collectives.calls["all_gather"] == before.get("all_gather", 0)
+    with recording() as rec:
+        _halo_cg([halo_system._matvec_body(0)], [vals], [halo_system.cols_ext[0]], [b], None,
+                 1e-12, 5000)
+    assert rec.total("collective.ppermute") > 0
+    assert rec.total("collective.all_gather") == 0
 
 
 def test_block_swipdg_as_sharded_subdomain_aligned(mesh, block_discs):
@@ -196,13 +196,13 @@ def test_halo_sweep_syncs_trip_counts_without_gathers(discs):
     frozen = [system._frozen(m, system.thetas(system.op_coefficients, _mu(v)),
                              system.thetas(system.rhs_coefficients, _mu(v)))
               for m, v in enumerate(SWEEP[:2])]
-    before = dict(collectives.calls)
-    xs = _halo_cg([system._matvec_body(m) for m in range(2)], [f[0] for f in frozen],
-                  system.cols_ext, [f[1] for f in frozen], None, 1e-12, 5000,
-                  sync_axes=("mu",))
-    assert collectives.calls["ppermute"] > before.get("ppermute", 0)
-    assert collectives.calls["pmax"] > before.get("pmax", 0)
-    assert collectives.calls["all_gather"] == before.get("all_gather", 0)
+    with recording() as rec:
+        xs = _halo_cg([system._matvec_body(m) for m in range(2)], [f[0] for f in frozen],
+                      system.cols_ext, [f[1] for f in frozen], None, 1e-12, 5000,
+                      sync_axes=("mu",))
+    assert rec.total("collective.ppermute") > 0
+    assert rec.total("collective.pmax") > 0
+    assert rec.total("collective.all_gather") == 0
     for x, v in zip(xs, SWEEP[:2]):
         np.testing.assert_allclose(system._global(x).numpy(),
                                    td.solve(_mu(v), options={"type": "direct"}).numpy(),

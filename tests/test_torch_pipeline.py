@@ -20,7 +20,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization as TD  # noqa: E402
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: E402
-from dune_hdd_tpu_torch.parallel import collectives  # noqa: E402
 from dune_hdd_tpu_torch.parallel.pipeline import (  # noqa: E402
     EstimatorStage,
     _ell_stacks,
@@ -30,6 +29,7 @@ from dune_hdd_tpu_torch.parallel.pipeline import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.parallel.sharded import Mesh  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MUS = ([1.0, 1.0, 1.0, 1.0], [0.1, 1.0, 0.5, 2.0],
@@ -150,13 +150,13 @@ def test_pipeline_hands_payloads_by_ppermute(setup):
     """The stage-to-stage transfer is a ppermute (point to point), and a
     psum replicates the last stage's results."""
     d, op, rhs, th_op, th_rhs = setup
-    before = dict(collectives.calls)
-    pipeline_parameter_stages(op, rhs, th_op, th_rhs, mesh=make_stage_mesh(CPU), cg_iters=10,
-                              dtype=torch.float64)
+    with recording() as rec:
+        pipeline_parameter_stages(op, rhs, th_op, th_rhs, mesh=make_stage_mesh(CPU),
+                                  cg_iters=10, dtype=torch.float64)
     B, S = th_op.shape[0], 3
-    assert collectives.calls["ppermute"] - before.get("ppermute", 0) == 3 * (B + S - 1)
-    assert collectives.calls["psum"] - before.get("psum", 0) == 2
-    assert collectives.calls["all_gather"] == before.get("all_gather", 0)
+    assert rec.total("collective.ppermute") == 3 * (B + S - 1)
+    assert rec.total("collective.psum") == 2
+    assert rec.total("collective.all_gather") == 0
 
 
 def test_pipeline_rejects_bad_mesh(setup):

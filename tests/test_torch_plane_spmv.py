@@ -34,6 +34,7 @@ from dune_hdd_tpu_torch.kernels.plane_spmv import (  # noqa: E402
     plane_spmv_reference,
 )
 from dune_hdd_tpu_torch.la.stencil_assembly import build_structured_assembly  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 BISECTIONS = 2
 
@@ -168,9 +169,9 @@ def test_wrapper_takes_higher_nd_and_rejects_others(setup, nd):
     _, splan = setup
     W = _random_planes(splan.plan, splan.lattice, nd, torch.float64, nd)
     X = _x(splan.lattice, nd + 1, torch.float64, nd)
-    before = plane_spmv.launches
-    y = plane_spmv(W, X, splan.plan)
-    assert plane_spmv.launches == before and y.shape == X.shape
+    with recording() as rec:
+        y = plane_spmv(W, X, splan.plan)
+    assert rec.total("kernel.plane_spmv") == 0 and y.shape == X.shape
     assert torch.equal(y, plane_spmv_reference(W, X, splan.plan))
     with pytest.raises(ValueError):
         plane_spmv(W[:, :4, :4].contiguous(), X[:4].contiguous(), splan.plan)
@@ -180,9 +181,9 @@ def test_cpu_routes_to_plain_version_uncounted(setup):
     _, splan = setup
     W = _random_planes(splan.plan, splan.lattice, 5, torch.float64)
     X = _x(splan.lattice, 6, torch.float64)
-    before = plane_spmv.launches
-    y = plane_spmv(W, X, splan.plan)
-    assert plane_spmv.launches == before
+    with recording() as rec:
+        y = plane_spmv(W, X, splan.plan)
+    assert rec.total("kernel.plane_spmv") == 0
     assert torch.equal(y, plane_spmv_reference(W, X, splan.plan))
 
 
@@ -201,10 +202,9 @@ def test_kernel_matches_plain_on_card(cuda_device, setup, dtype, rel):
               _random_planes(splan.plan, splan.lattice, 7, dtype)):
         W = W.to(cuda_device)
         X = _x(splan.lattice, 8, dtype).to(cuda_device)
-        before = plane_spmv.launches
-        y = plane_spmv(W, X, splan.plan)
-        torch.cuda.synchronize()
-        assert plane_spmv.launches == before + 1
+        with recording() as rec:
+            y = plane_spmv(W, X, splan.plan)
+        assert rec.total("kernel.plane_spmv") == 1
         y_ref = plane_spmv_reference(W, X, splan.plan)
         err = (y - y_ref).abs().max().item()
         assert err <= rel * y_ref.abs().max().item(), err
@@ -217,11 +217,11 @@ def test_kernel_matches_plain_on_card_at_higher_nd(cuda_device, setup, nd, dtype
     _, splan = setup
     W = _random_planes(splan.plan, splan.lattice, 9, dtype, nd).to(cuda_device)
     X = _x(splan.lattice, 10, dtype, nd).to(cuda_device)
-    before = dict(plane_spmv.case_launches)
-    y = plane_spmv(W, X, splan.plan)
-    torch.cuda.synchronize()
+    with recording() as rec:
+        y = plane_spmv(W, X, splan.plan)
     case = f"nd{nd}_{'f32' if dtype == torch.float32 else 'f64'}"
-    assert plane_spmv.case_launches[case] == before.get(case, 0) + 1
+    key = f"kernel.plane_spmv.{case} {splan.lattice[0]}x{splan.lattice[1]}"
+    assert rec.total(key) == 1 == rec.total("kernel.plane_spmv")
     y_ref = plane_spmv_reference(W, X, splan.plan)
     err = (y - y_ref).abs().max().item()
     assert err <= rel * y_ref.abs().max().item(), err
@@ -343,10 +343,9 @@ def test_kernel_bitwise_equals_plain_on_wrapped_planes(cuda_device, setup, latti
         W = _dense_planes(lattice, 20 + seed, dtype, nd).to(cuda_device)
         X = _x(lattice, 30 + seed, dtype, nd).to(cuda_device)
         key = f"nd{nd}_{'f32' if dtype == torch.float32 else 'f64'} {lattice[0]}x{lattice[1]}"
-        before = plane_spmv.lattice_launches[key]
-        y = plane_spmv(W, X, plan)
-        torch.cuda.synchronize()
-        assert plane_spmv.lattice_launches[key] == before + 1
+        with recording() as rec:
+            y = plane_spmv(W, X, plan)
+        assert rec.total("kernel.plane_spmv." + key) == 1
         assert torch.equal(y, plane_spmv_reference(W, X, plan))
 
 

@@ -28,6 +28,7 @@ from dune_hdd_tpu_torch.kernels.plane_spmv import (  # noqa: E402
     plane_spmv_slab_reference,
 )
 from dune_hdd_tpu_torch.la.stencil import stencil_plan  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -72,9 +73,9 @@ def test_slab_plain_bitwise_equals_unsliced_plain(plan, nd, D):
 def test_slab_cpu_route_is_plain_and_uncounted(plan):
     W = _planes((8, 12), 1, torch.float32, 3)
     X = _x((8, 24), 2, torch.float32, 3)
-    before = plane_spmv_slab.launches
-    y = plane_spmv_slab(W, _slab(X, 0, 2), plan)
-    assert plane_spmv_slab.launches == before
+    with recording() as rec:
+        y = plane_spmv_slab(W, _slab(X, 0, 2), plan)
+    assert rec.total("kernel.plane_spmv_slab") == 0
     assert torch.equal(y, plane_spmv_slab_reference(W, _slab(X, 0, 2), plan))
     with pytest.raises(ValueError):  # no halo columns
         plane_spmv_slab(W, X[..., :12].contiguous(), plan)
@@ -121,10 +122,9 @@ def test_slab_kernel_bitwise_on_card(cuda_device, plan, lattice, D, dtype, nd):
     for d in range(D):
         Wl = W[..., d * Wd:(d + 1) * Wd].contiguous()
         X_ext = _slab(X, d, D)
-        before = plane_spmv_slab.case_launches[case]
-        y_slab = plane_spmv_slab(Wl, X_ext, plan)
-        torch.cuda.synchronize()
-        assert plane_spmv_slab.case_launches[case] == before + 1
+        with recording() as rec:
+            y_slab = plane_spmv_slab(Wl, X_ext, plan)
+        assert rec.total(f"kernel.plane_spmv_slab.{case} {lattice[0]}x{Wd}") == 1
         assert torch.equal(y_slab, y[..., d * Wd:(d + 1) * Wd])
         assert torch.equal(y_slab, plane_spmv_slab_reference(Wl, X_ext, plan))
 

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dune_hdd_tpu_torch.kernels.probe import probe, probe_reference  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 
 def _inputs(shape, seed):
@@ -46,9 +47,9 @@ def test_wrapper_rejects_bad_inputs_and_routes_cpu_uncounted():
         probe(x.double(), y.double())
     with pytest.raises(ValueError):
         probe(x.t(), y.t())
-    before = probe.launches
-    assert torch.equal(probe(x, y), probe_reference(x, y))
-    assert probe.launches == before
+    with recording() as rec:
+        assert torch.equal(probe(x, y), probe_reference(x, y))
+    assert rec.total("kernel.probe") == 0
 
 
 @pytest.fixture
@@ -62,11 +63,10 @@ def cuda_device():
 @pytest.mark.parametrize("shape", [(64, 128), (1 << 20) + 3, (1 << 24) + 3, 1, 5])
 def test_kernel_matches_plain_bitwise_on_card(cuda_device, shape):
     x, y = (t.to(cuda_device) for t in _inputs(shape, 2))
-    before, scalar_before = probe.launches, probe.scalar_launches
-    o = probe(x, y)
-    torch.cuda.synchronize()
-    assert probe.launches == before + 1
-    assert probe.scalar_launches == scalar_before  # fresh tensors are 16-byte aligned
+    with recording() as rec:
+        o = probe(x, y)
+    assert rec.total("kernel.probe") == 1
+    assert rec.total("kernel.probe.scalar") == 0  # fresh tensors are 16-byte aligned
     assert torch.equal(o, probe_reference(x, y))
 
 
@@ -84,11 +84,10 @@ def test_misaligned_views_on_card(cuda_device, n, offsets, vector):
     (ox, oy) = offsets
     xb, yb = (t.to(cuda_device) for t in _inputs(n + 3, 3))
     x, y = xb[ox:ox + n], yb[oy:oy + n]
-    before, scalar_before = probe.launches, probe.scalar_launches
-    o = probe(x, y)
-    torch.cuda.synchronize()
-    assert probe.launches == before + 1
-    assert probe.scalar_launches == scalar_before + (0 if vector else 1)
+    with recording() as rec:
+        o = probe(x, y)
+    assert rec.total("kernel.probe") == 1
+    assert rec.total("kernel.probe.scalar") == (0 if vector else 1)
     assert torch.equal(o, probe_reference(x, y))
     if vector:
         assert o.data_ptr() % 16 == x.data_ptr() % 16

@@ -23,8 +23,8 @@ import jax.numpy as jnp  # noqa: E402
 from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv  # noqa: E402
 from dune_hdd_tpu_torch.la.stencil import StencilBlockEll as TStencil  # noqa: E402
 from dune_hdd_tpu_torch.la.stencil_sharded import ShardedStencilSystem as TSharded  # noqa: E402
-from dune_hdd_tpu_torch.parallel import collectives  # noqa: E402
 from dune_hdd_tpu_torch.parallel.sharded import Mesh as TMesh  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 MACRO = (100, 20)
 
@@ -147,10 +147,10 @@ def test_sharded_matvec_exchanges_by_ppermute(tmesh, port):
     gathers nothing (the reference reads it from the HLO)."""
     S, B, _ = port
     sys4 = TSharded(S, B, tmesh, macro=MACRO)
-    before = dict(collectives.calls)
-    sys4._matvec_local(sys4.planes, sys4.B)
-    assert collectives.calls["ppermute"] == before.get("ppermute", 0) + 2
-    assert collectives.calls["all_gather"] == before.get("all_gather", 0)
+    with recording() as rec:
+        sys4._matvec_local(sys4.planes, sys4.B)
+    assert rec.total("collective.ppermute") == 2
+    assert rec.total("collective.all_gather") == 0
     X, _ = sys4.solve(tol=1e-2, inner_iters=5, outer_max=1)
     assert X.shape == B.shape and bool(torch.isfinite(X).all())
 

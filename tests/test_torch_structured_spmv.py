@@ -29,6 +29,7 @@ from dune_hdd_tpu_torch.kernels.structured_spmv import (  # noqa: E402
     structured_spmv_reference,
 )
 from dune_hdd_tpu_torch.la.block_ell import StructuredBlockEll  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -154,18 +155,18 @@ def test_wrapper_takes_higher_nd(nd):
     and equal the plane layout's plain SpMV on the same random blocks."""
     neighbors, blocks, offsets, x = _random(4096, nd, nd)
     A = structured_from_numpy(neighbors, blocks, offsets, "cpu")
-    before = structured_spmv.launches
-    y = A.matvec(torch.as_tensor(x))
-    assert structured_spmv.launches == before
+    with recording() as rec:
+        y = A.matvec(torch.as_tensor(x))
+    assert rec.total("kernel.structured_spmv") == 0
     assert torch.equal(y, structured_spmv_reference(A.planes, torch.as_tensor(x), A.offsets))
 
 
 def test_cpu_routes_to_plain_version_uncounted():
     neighbors, blocks, offsets, x = _random(4000, 5)
     P = torch.as_tensor(np.moveaxis(blocks, 0, -1).copy())
-    before = structured_spmv.launches
-    y = structured_spmv(P, torch.as_tensor(x), offsets)
-    assert structured_spmv.launches == before
+    with recording() as rec:
+        y = structured_spmv(P, torch.as_tensor(x), offsets)
+    assert rec.total("kernel.structured_spmv") == 0
     assert torch.equal(y, structured_spmv_reference(P, torch.as_tensor(x), offsets))
 
 
@@ -182,10 +183,9 @@ def test_kernel_matches_plain_on_card(cuda_device, nc, nd):
     neighbors, blocks, offsets, x = _random(nc, 6, nd)
     A = structured_from_numpy(neighbors, blocks, offsets, cuda_device)
     X = torch.as_tensor(x).to(cuda_device)
-    before = structured_spmv.launches
-    y = A.matvec(X)
-    torch.cuda.synchronize()
-    assert structured_spmv.launches == before + 1
+    with recording() as rec:
+        y = A.matvec(X)
+    assert rec.total("kernel.structured_spmv") == 1
     y_ref = structured_spmv_reference(A.planes, X, A.offsets)
     assert (y - y_ref).abs().max().item() <= 1e-5 * y_ref.abs().max().item()
 

@@ -36,6 +36,7 @@ from dune_hdd_tpu_torch.kernels.sym_plane_spmv import (  # noqa: E402
     sym_schedule,
 )
 from dune_hdd_tpu_torch.la.stencil import stencil_plan, symmetric_planes  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
 
 BISECTIONS = 2
 
@@ -168,9 +169,9 @@ def test_cpu_routes_to_plain_version_uncounted(plan_lattice):
     plan, (KY, KX) = plan_lattice
     W = torch.as_tensor(_random((4, 6, 6, 8, KY, KX), 7, np.float64))
     X = torch.as_tensor(_random((6, 8, KY, KX), 8, np.float64))
-    before = sym_plane_spmv.launches
-    y = sym_plane_spmv(W, X, plan)
-    assert sym_plane_spmv.launches == before
+    with recording() as rec:
+        y = sym_plane_spmv(W, X, plan)
+    assert rec.total("kernel.sym_plane_spmv") == 0
     assert torch.equal(y, sym_plane_spmv_reference(W, X, plan))
 
 
@@ -249,8 +250,7 @@ def test_kernel_bitwise_equals_plain_on_card(cuda_device, plan_lattice, lattice,
     gen = torch.Generator(device=cuda_device).manual_seed(nd)
     W = torch.randn((4, nd, nd, 8) + lattice, generator=gen, device=cuda_device, dtype=dtype)
     X = torch.randn((nd, 8) + lattice, generator=gen, device=cuda_device, dtype=dtype)
-    before = sym_plane_spmv.launches
-    y = sym_plane_spmv(W, X, plan)
-    torch.cuda.synchronize()
-    assert sym_plane_spmv.launches == before + 1
+    with recording() as rec:
+        y = sym_plane_spmv(W, X, plan)
+    assert rec.total("kernel.sym_plane_spmv") == 1
     assert torch.equal(y, sym_plane_spmv_reference(W, X, plan))

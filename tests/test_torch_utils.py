@@ -2,7 +2,8 @@
 merge and sections, the VTU writers' text (triangles, quads, P2 as quadratic
 triangles, the higher-order Lagrange types, cell data) equal to the
 reference writer's, the logger factory and the timed logger, the phase
-registry, and the ``torch.profiler`` trace with annotations."""
+spans of the port's record, and the ``torch.profiler`` trace with
+annotations."""
 import json
 import logging
 import os
@@ -22,20 +23,27 @@ from dune_hdd_tpu_torch.utils import vtk as tvtk  # noqa: E402
 from dune_hdd_tpu_torch.utils.config import Configuration  # noqa: E402
 from dune_hdd_tpu_torch.utils.logging import (  # noqa: E402
     TimedLogger, create_logger, reset_timings, timed, timings)
-from dune_hdd_tpu_torch.utils.profiling import annotate, profile_report, trace  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import (  # noqa: E402
+    annotate, profile_report, recording, trace)
 
 
 def test_timed_records_phases(capsys):
+    """``timed`` opens spans of the record while recording, and keeps
+    nothing otherwise (its log lines are written either way)."""
     reset_timings()
-    with timed("phase.a"):
-        pass
-    with timed("phase.a"):
-        pass
     log = create_logger({"info": True}, "test_timed_phases")
-    with timed("phase.b", log, sync="cpu"):
+    with timed("phase.off", log):
         pass
+    assert timings() == {}
+    with recording():
+        with timed("phase.a"):
+            pass
+        with timed("phase.a"):
+            pass
+        with timed("phase.b", log, sync="cpu"):
+            pass
     t = timings()
-    assert len(t["phase.a"]) == 2 and len(t["phase.b"]) == 1
+    assert len(t["phase.a"]) == 2 and len(t["phase.b"]) == 1 and "phase.off" not in t
     assert all(v >= 0 for v in t["phase.a"])
     out = capsys.readouterr().out
     assert "phase.b...\n" in out and "phase.b... done (took " in out
@@ -125,9 +133,9 @@ def test_cell_data_vtu_text_equals_reference(cell_type, tmp_path):
 
 
 def test_profiler_trace_and_annotations(tmp_path):
-    """``trace`` writes a Chrome trace that holds the annotation; the
-    annotation lands in the phase registry; ``profile_report`` aggregates
-    and resets."""
+    """``trace`` writes a Chrome trace that holds the annotation as an
+    ``hdd::`` span; the annotation lands in the record; ``profile_report``
+    aggregates and resets."""
     reset_timings()
     logdir = str(tmp_path / "trace")
     with trace(logdir):
@@ -136,7 +144,7 @@ def test_profiler_trace_and_annotations(tmp_path):
     path = os.path.join(logdir, "trace.json")
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
-    assert any(e.get("name") == "hot_phase" for e in events)
+    assert any(e.get("name") == "hdd::hot_phase" for e in events)
     assert "hot_phase" in timings()
     rep = profile_report(reset=True)
     assert "hot_phase" in rep and "calls" in rep
