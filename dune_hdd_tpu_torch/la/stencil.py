@@ -17,11 +17,13 @@ is plain torch on the planes' device.
 
 Spans and counters (``utils/profiling.py``; recorded only while recording):
 ``pcg`` around each ``stencil_pcg`` with its ``pcg.iterations``,
-``precond.apply`` and ``matvec`` around each application of M and A in it,
-``refine.residual`` around each float64 residual of the refinement, and
-``host.syncs`` at each point where the host waits for the device: a read of
-a device value, ``torch.linalg``'s check of its result, and a copy from
-host memory to the device.
+``precond.apply`` and ``matvec`` around each application of M and A in it
+where it runs op by op, ``refine.residual`` around each float64 residual of
+the refinement, and ``host.syncs`` at each point where the host waits for
+the device: a read of a device value, ``torch.linalg``'s check of its
+result, and a copy from host memory to the device.  On CUDA the PCG runs as
+CUDA graphs (`_PcgGraphs`: ``pcg.graph.capture`` and the ``pcg.graph.*``
+counters).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 
 from ..kernels.plane_spmv import plane_spmv
 from ..kernels.sym_plane_spmv import sym_forward_edges, sym_plane_spmv
-from ..utils.profiling import count, host_read, span, upload
+from ..utils.profiling import (SyncInCapture, captured_counts, count, host_read, span,
+                               upload)
 from .block_ell import BlockEllMatrix, StructuredBlockEll, inv3x3
 
 __all__ = [
@@ -989,6 +992,166 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def _applied(op: Callable, V: torch.Tensor, adt: torch.dtype, vdt: torch.dtype) -> torch.Tensor:
+    """``op`` applied to V in ``adt``, the result in ``vdt``."""
+    return op(V.to(adt)).to(vdt)
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return _dot(a.to(dt), b.to(dt))
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """num / den where den > 0, else 0, in ``dtype``: PCG's alpha and beta."""
+    ok = den > 0
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(den)).to(dtype)
+
+
+def _eager_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable, rtol: float, maxiter: int,
+               unroll: int, adt: torch.dtype, vdt: torch.dtype, dt: torch.dtype):
+    """The PCG loop op by op (`stencil_pcg` on the CPU, and for an M that
+    cannot be captured): A and M applied in ``adt``, the Krylov vectors in
+    ``vdt``, the dots in ``dt``; each application of M in a
+    ``precond.apply`` span, of A in a ``matvec`` span."""
+
+    def precond(V):
+        with span("precond.apply"):
+            return _applied(M, V, adt, vdt)
+
+    B = B.to(vdt)
+    X = torch.zeros_like(B)
+    Z = precond(B)
+    P = Z
+    rz = _vdot(B, Z, dt)
+    R = B
+    stop2 = torch.tensor(rtol * rtol, dtype=dt).item()  # rounded like the dots (host)
+    k = 0
+    while k < maxiter and host_read(_vdot(R, R, dt)) > stop2:
+        for _ in range(max(1, int(unroll))):
+            with span("matvec"):
+                AP = _applied(A.matvec, P, adt, vdt)
+            alpha = _ratio(rz, _vdot(P, AP, dt), vdt)
+            X = X + alpha * P
+            R = R - alpha * AP
+            Z = precond(R)
+            rz_new = _vdot(R, Z, dt)
+            beta = _ratio(rz_new, rz, vdt)
+            P = Z + beta * P
+            rz = rz_new
+            k += 1
+    return X, k
+
+
+class _PcgGraphs:
+    """The PCG of one (A, M) pair on CUDA tensors as two CUDA graphs over
+    fixed buffers X, R, P and rz: ``init`` (X = 0, Z = M(R), P = Z,
+    rz = (R, Z)) and ``step`` (one iteration).  ``step`` issues the eager
+    loop's operations in its order and updates in place with the same
+    roundings (X += alpha P, R -= alpha AP, P = beta P + Z), so the
+    iterates are bitwise the eager loop's.  Both are captured at the first
+    ``pcg`` and replayed by every later one; the caller loads each rhs into
+    R.  Where M asks for a host synchronization (``SyncInCapture``), the
+    pair runs the eager loop instead.
+
+    Counters: ``pcg.graph.captures`` (one per graph), ``pcg.graph.replays``
+    (init and step), ``pcg.graph.eager_fallbacks``; the capture runs in a
+    ``pcg.graph.capture`` span, and the counts made while capturing (the
+    kernels' launches) count again at each replay."""
+
+    def __init__(self, A: StencilBlockEll, M: Callable, shape, adt: torch.dtype,
+                 vdt: torch.dtype, dt: torch.dtype, device: torch.device):
+        self.A, self.M, self.adt, self.vdt, self.dt = A, M, adt, vdt, dt
+        self.X = torch.empty(shape, dtype=vdt, device=device)
+        self.R = torch.empty_like(self.X)
+        self.P = torch.empty_like(self.X)
+        self.rz = torch.empty((), dtype=dt, device=device)
+        self.graphs = None   # [(graph, its counts)] of init and step, once captured
+        self.eager = False   # M could not be captured
+
+    def _init(self):
+        self.X.zero_()
+        Z = _applied(self.M, self.R, self.adt, self.vdt)
+        self.P.copy_(Z)
+        self.rz.copy_(_vdot(self.R, Z, self.dt))
+
+    def _step(self):
+        X, R, P, rz, adt, vdt, dt = self.X, self.R, self.P, self.rz, self.adt, self.vdt, self.dt
+        AP = _applied(self.A.matvec, P, adt, vdt)
+        alpha = _ratio(rz, _vdot(P, AP, dt), vdt)
+        X.add_(alpha * P)
+        R.sub_(alpha * AP)
+        Z = _applied(self.M, R, adt, vdt)
+        rz_new = _vdot(R, Z, dt)
+        beta = _ratio(rz_new, rz, vdt)
+        P.mul_(beta).add_(Z)
+        rz.copy_(rz_new)
+
+    def _capture(self):
+        """Captures init and step into one private memory pool on a side
+        stream.  The cuBLAS workspaces are dropped before and after, so the
+        one the capture takes lives in that pool, is freed with the graphs,
+        and no workspace is held from outside it."""
+        current = torch.cuda.current_stream(self.X.device)
+        stream = torch.cuda.Stream(self.X.device)
+        stream.wait_stream(current)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = []
+        with span("pcg.graph.capture"):
+            torch._C._cuda_clearCublasWorkspaces()
+            try:
+                with torch.cuda.stream(stream):
+                    for body in (self._init, self._step):
+                        graph = torch.cuda.CUDAGraph()
+                        with captured_counts() as counts:
+                            graph.capture_begin(pool=pool)
+                            try:
+                                body()
+                            finally:
+                                graph.capture_end()
+                        graphs.append((graph, counts))
+                        count("pcg.graph.captures")
+            except SyncInCapture:
+                self.eager = True
+                count("pcg.graph.eager_fallbacks")
+            finally:
+                torch._C._cuda_clearCublasWorkspaces()
+                current.wait_stream(stream)
+        if not self.eager:
+            self.graphs = graphs
+
+    def _replay(self, index: int):
+        graph, counts = self.graphs[index]
+        graph.replay()
+        count("pcg.graph.replays")
+        for name, n in counts.items():
+            count(name, n)
+
+    def pcg(self, rtol: float, maxiter: int, unroll: int, B: Optional[torch.Tensor] = None):
+        """`stencil_pcg` on the rhs in R (``B`` loaded into it first where
+        given); returns (X, iterations), X the buffer that the next call
+        overwrites (a new tensor where M runs eagerly)."""
+        with span("pcg", device=True):
+            if B is not None:
+                self.R.copy_(B)
+            if self.graphs is None and not self.eager:
+                self._capture()
+            if self.eager:
+                X, k = _eager_pcg(self.A, self.R, self.M, rtol, maxiter, unroll,
+                                  self.adt, self.vdt, self.dt)
+            else:
+                # the eager loop's host loop: init, then blocks of unroll steps
+                stop2 = torch.tensor(rtol * rtol, dtype=self.dt).item()
+                self._replay(0)
+                X, k = self.X, 0
+                while k < maxiter and host_read(_vdot(self.R, self.R, self.dt)) > stop2:
+                    for _ in range(max(1, int(unroll))):
+                        self._replay(1)
+                        k += 1
+            count("pcg.iterations", k)
+        return X, k
+
+
 def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
                 rtol: float = 1e-5, maxiter: int = 150, unroll: int = 4,
                 dot_dtype: Optional[torch.dtype] = None,
@@ -1001,50 +1164,17 @@ def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
 
     Convergence is checked (one host sync) before every block of ``unroll``
     iterations, so the count is a multiple of ``unroll`` and may pass
-    ``maxiter`` by less than ``unroll``.  Runs in a ``pcg`` span, each
-    application of M in a ``precond.apply`` span and of A in a ``matvec``
-    span; counts its iterations in ``pcg.iterations``."""
+    ``maxiter`` by less than ``unroll``.  On CUDA tensors the iteration is
+    captured once as a CUDA graph and replayed (`_PcgGraphs`), to the same
+    iterates; on the CPU it runs op by op.  Runs in a ``pcg`` span (op by
+    op, each application of M in a ``precond.apply`` span and of A in a
+    ``matvec`` span); counts its iterations in ``pcg.iterations``."""
+    adt = B.dtype
+    vdt, dt = vec_dtype or adt, dot_dtype or adt
+    if B.is_cuda:
+        return _PcgGraphs(A, M, B.shape, adt, vdt, dt, B.device).pcg(rtol, maxiter, unroll, B)
     with span("pcg", device=True):
-        adt = B.dtype
-        vdt = vec_dtype or adt
-        dt = dot_dtype or adt
-
-        def apply_in_adt(op, V):
-            return op(V.to(adt)).to(vdt)
-
-        def precond(V):
-            with span("precond.apply"):
-                return apply_in_adt(M, V)
-
-        def vdot(a, b):
-            return _dot(a.to(dt), b.to(dt))
-
-        B = B.to(vdt)
-        X = torch.zeros_like(B)
-        Z = precond(B)
-        P = Z
-        rz = vdot(B, Z)
-        R = B
-        stop2 = torch.tensor(rtol * rtol, dtype=dt).item()  # rounded like the dots (host)
-        k = 0
-        while k < maxiter and host_read(vdot(R, R)) > stop2:
-            for _ in range(max(1, int(unroll))):
-                with span("matvec"):
-                    AP = apply_in_adt(A.matvec, P)
-                pap = vdot(P, AP)
-                ok = pap > 0
-                alpha = torch.where(ok, rz / torch.where(ok, pap, torch.ones_like(pap)),
-                                    torch.zeros_like(pap)).to(vdt)
-                X = X + alpha * P
-                R = R - alpha * AP
-                Z = precond(R)
-                rz_new = vdot(R, Z)
-                ok = rz > 0
-                beta = torch.where(ok, rz_new / torch.where(ok, rz, torch.ones_like(rz)),
-                                   torch.zeros_like(rz)).to(vdt)
-                P = Z + beta * P
-                rz = rz_new
-                k += 1
+        X, k = _eager_pcg(A, B, M, rtol, maxiter, unroll, adt, vdt, dt)
         count("pcg.iterations", k)
     return X, k
 
@@ -1059,7 +1189,9 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     sweeps).  Each sweep solves for the correction of the exact float64
     residual, which is recomputed with the float64 SpMV (of the symmetric
     operator when A is symmetric), in a ``refine.residual`` span.
-    ``dot_dtype``/``vec_dtype`` go to :func:`stencil_pcg`."""
+    ``dot_dtype``/``vec_dtype`` go to :func:`stencil_pcg`.  On CUDA every
+    sweep replays the graphs of one `_PcgGraphs`, captured in the first
+    sweep, with its scaled residual loaded into their R."""
     A64 = A.astype(torch.float64)
     B64 = B.to(torch.float64)
     bnorm = host_read(torch.linalg.norm(B64))
@@ -1068,11 +1200,18 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     R64 = B64
     rnorm = bnorm
     sweeps = iters = 0
+    f32 = torch.float32
+    graphs = (_PcgGraphs(A, M, B.shape, f32, vec_dtype or f32, dot_dtype or f32, B.device)
+              if B.is_cuda else None)
     while rnorm > target and sweeps < outer_max:
         scale = rnorm
-        dX, ki = stencil_pcg(A, (R64 / scale).to(torch.float32), M,
-                             rtol=inner_rtol, maxiter=inner_iters, unroll=unroll,
-                             dot_dtype=dot_dtype, vec_dtype=vec_dtype)
+        if graphs is None:
+            dX, ki = stencil_pcg(A, (R64 / scale).to(f32), M,
+                                 rtol=inner_rtol, maxiter=inner_iters, unroll=unroll,
+                                 dot_dtype=dot_dtype, vec_dtype=vec_dtype)
+        else:
+            graphs.R.copy_((R64 / scale).to(f32))
+            dX, ki = graphs.pcg(inner_rtol, inner_iters, unroll)
         X = X + dX.to(torch.float64) * scale
         with span("refine.residual", device=True):
             with span("matvec"):

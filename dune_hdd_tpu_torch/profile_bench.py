@@ -9,7 +9,8 @@ recorded call: the layer split (the device durations of its ``assemble``,
 ``precond.build``, ``pcg`` and ``refine.residual`` spans), its iterations
 and sweeps, and its host syncs (``host.syncs``: the PCG's per-``unroll``
 convergence checks, the refinement's residual norms, the build's reads and
-copies).  From the profiled call: the traced wall time, the device busy
+copies), its CUDA graph replays per iteration and the host time of its
+graph capture.  From the profiled call: the traced wall time, the device busy
 time (union of kernel and copy intervals) and idle share, the device time,
 operations and idle time by ``hdd::`` span, the host time blocked in
 ``.item()`` and the device idle time in the gaps during which one
@@ -52,6 +53,10 @@ def span_summary(rec, traced=None, breakdown=None) -> dict:
     if iters:
         out["pcg_span_iter_ms"] = 1e3 * sum(rec.seconds("pcg")) / iters
         out["host_syncs_per_iter"] = rec.total("host.syncs") / iters
+        out["graph_replays_per_iter"] = rec.total("pcg.graph.replays") / iters
+    if captures := rec.seconds("pcg.graph.capture"):
+        out["graph_capture_ms"] = 1e3 * sum(captures) / len(captures)
+        out["graph_eager_fallbacks"] = rec.total("pcg.graph.eager_fallbacks")
     traced_iters = traced.total("pcg.iterations") if traced is not None else 0
     if breakdown is not None and traced_iters:
         def inside(name):

@@ -20,7 +20,12 @@ default:
 * ``count(name, n=1)``: adds to a counter, on the innermost open span and
   in the record's totals.  ``host_read(t)`` is ``t.item()`` and
   ``upload(a, device)`` a copy to the device, each counted in
-  ``host.syncs``; ``count_launch`` counts a kernel launch.
+  ``host.syncs``; each raises ``SyncInCapture`` while the current CUDA
+  stream captures a graph, which cannot hold a wait for the device.
+  ``count_launch`` counts a kernel launch.
+* ``captured_counts()``: the counts made while a CUDA graph is captured,
+  kept apart from the record; the graph's work runs at each replay, whose
+  caller counts them again.
 * ``trace(logdir)``: records the host ops and, on a card, the device
   kernels of everything run inside it, the ``hdd::`` spans included, and
   writes them as a Chrome / Perfetto trace (``<logdir>/trace.json``).
@@ -44,7 +49,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 __all__ = ["Record", "Span", "recording", "span", "count", "host_read", "upload",
-           "count_launch",
+           "count_launch", "SyncInCapture", "captured_counts",
            "trace", "annotate", "timings", "reset_timings", "profile_report",
            "SpanBreakdown", "span_breakdown", "SPAN_PREFIX"]
 
@@ -54,6 +59,7 @@ _ON = False                       # the one check of the off path
 _REC: Optional["Record"] = None   # the record being written
 _LAST: Optional["Record"] = None  # the record last written (``timings``)
 _NULL = nullcontext()             # the span of the off path
+_CAPTURED: Optional[Dict[str, int]] = None  # the counts of a graph being captured
 
 
 class Span:
@@ -204,8 +210,11 @@ def span(name: str, device: bool = False):
 
 def count(name: str, n: int = 1) -> None:
     """Adds ``n`` to counter ``name``: on the innermost open span and in the
-    record's totals."""
+    record's totals, or, while a graph is captured, to its counts."""
     if not _ON:
+        return
+    if _CAPTURED is not None:
+        _CAPTURED[name] = _CAPTURED.get(name, 0) + n
         return
     rec = _REC
     rec.totals[name] = rec.totals.get(name, 0) + n
@@ -216,9 +225,34 @@ def count(name: str, n: int = 1) -> None:
         s.counts[name] = s.counts.get(name, 0) + n
 
 
+@contextmanager
+def captured_counts():
+    """Yields a dict that takes, instead of the record, the counts made in
+    the block: the capture of a CUDA graph, which launches nothing itself.
+    Each replay of the graph counts them."""
+    global _CAPTURED
+    outer, _CAPTURED = _CAPTURED, {}
+    try:
+        yield _CAPTURED
+    finally:
+        _CAPTURED = outer
+
+
+class SyncInCapture(RuntimeError):
+    """A wait for the device asked for while the current CUDA stream
+    captures a graph (``host_read``, ``upload``): the capture cannot hold it."""
+
+
+def _refuse_in_capture(what: str) -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise SyncInCapture(f"{what} waits for the device, which a CUDA graph capture "
+                            "cannot hold")
+
+
 def host_read(t: torch.Tensor):
     """``t.item()``, counted in ``host.syncs``: on a card the host waits for
-    the device to reach the value."""
+    the device to reach the value (``SyncInCapture`` during a capture)."""
+    _refuse_in_capture("host_read")
     count("host.syncs")
     return t.item()
 
@@ -226,7 +260,8 @@ def host_read(t: torch.Tensor):
 def upload(a, device, dtype=None) -> torch.Tensor:
     """Host data (an array, a list) as a tensor on ``device``, counted in
     ``host.syncs``: a copy from pageable host memory to a card waits for the
-    device."""
+    device (``SyncInCapture`` during a capture)."""
+    _refuse_in_capture("upload")
     count("host.syncs")
     return torch.as_tensor(a, dtype=dtype).to(device)
 

@@ -8,22 +8,25 @@ reference in its bench scope: x64 off, highest matmul precision):
   coarse solves, 2e-5 x max;
 * the weighted two-level deflation apply, 2e-4 x max;
 * PCG: iteration counts within max(4, 10%), X within 1e-4 x max.
+
+On the card (``cuda``; the file imports JAX only in the fixture ``ref``, so
+it runs there without it): the PCG replayed as CUDA graphs against the
+eager loop, bitwise, with its launch counts, one capture per refined solve,
+and the eager fallback for a preconditioner that syncs.
 """
 import contextlib
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
 
-import jax.numpy as jnp  # noqa: E402
-
-from dune_hdd_tpu.la import stencil as jx  # noqa: E402
 from dune_hdd_tpu_torch.bench_harness import build_spe10_bench  # noqa: E402
 from dune_hdd_tpu_torch.convert import stencil_from_numpy  # noqa: E402
 from dune_hdd_tpu_torch.la import stencil as pt  # noqa: E402
+from dune_hdd_tpu_torch.utils.profiling import host_read, recording  # noqa: E402
 
 BISECTIONS = 2
 MACROS = [(100, 20), (50, 10)]  # fx = 1 (dense LU) and fx = 2 (BCR) at 2 bisections
@@ -43,8 +46,22 @@ def _reference_defaults():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's stencil module and ``jax.numpy`` (skips where JAX
+    is absent)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from dune_hdd_tpu.la import stencil
+
+    return SimpleNamespace(jx=stencil, jnp=jnp)
+
+
 @contextlib.contextmanager
 def _jx_f32():
+    import jax
+
     with jax.enable_x64(False), jax.default_matmul_precision("highest"):
         yield
 
@@ -57,19 +74,21 @@ def system():
     return S.planes.numpy(), B.numpy(), s.numpy(), S.plan
 
 
-def _both(system):
+def _both(system, ref):
     planes, B, s, plan = system
-    return stencil_from_numpy(planes, plan, "cpu"), jx.StencilBlockEll(jnp.asarray(planes), plan)
+    return (stencil_from_numpy(planes, plan, "cpu"),
+            ref.jx.StencilBlockEll(ref.jnp.asarray(planes), plan))
 
 
 def _r(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
-def test_operator_accessors_match(system):
+def test_operator_accessors_match(system, ref):
     """neighbor_fields, row_sums, diagonal_blocks and astype: bitwise except
     the row sums (reduction order), which hold at 1e-6 x max."""
-    S_t, S_j = _both(system)
+    S_t, S_j = _both(system, ref)
+    jnp = ref.jnp
     X = _r(system[1].shape, 5)
     for f_t, f_j in zip(S_t.neighbor_fields(torch.as_tensor(X)),
                         S_j.neighbor_fields(jnp.asarray(X)), strict=True):
@@ -82,8 +101,9 @@ def test_operator_accessors_match(system):
     np.testing.assert_array_equal(S64.planes.numpy(), np.asarray(S_j.astype(jnp.float64).planes))
 
 
-def test_jacobi_smoother_matches(system):
-    S_t, S_j = _both(system)
+def test_jacobi_smoother_matches(system, ref):
+    S_t, S_j = _both(system, ref)
+    jx, jnp = ref.jx, ref.jnp
     R = _r(system[1].shape, 1)
     with _jx_f32():
         z_ref = np.asarray(jx.jacobi_smoother(S_j)(jnp.asarray(R)))
@@ -98,8 +118,9 @@ def _weighted_pairing(S, weight, stack):
 
 
 @pytest.mark.parametrize("macro", MACROS)
-def test_coarse_bands_dense_E_and_solves_match(system, macro):
-    S_t, S_j = _both(system)
+def test_coarse_bands_dense_E_and_solves_match(system, ref, macro):
+    S_t, S_j = _both(system, ref)
+    jx, jnp = ref.jx, ref.jnp
     w = 1.0 / system[2]
     with _jx_f32():
         agg_j = jx._aggregation(S_j, macro)
@@ -135,8 +156,9 @@ def test_coarse_bands_dense_E_and_solves_match(system, macro):
 
 
 @pytest.mark.parametrize("macro", MACROS)
-def test_weighted_deflation_apply_matches(system, macro):
-    S_t, S_j = _both(system)
+def test_weighted_deflation_apply_matches(system, ref, macro):
+    S_t, S_j = _both(system, ref)
+    jx, jnp = ref.jx, ref.jnp
     w = 1.0 / system[2]
     R = _r(system[1].shape, 4)
     with _jx_f32():
@@ -150,13 +172,14 @@ def test_weighted_deflation_apply_matches(system, macro):
 
 
 @pytest.mark.parametrize("dtype,rel", [(np.float64, 1e-4), (np.float32, 1e-3)])
-def test_pcg_matches(system, dtype, rel):
+def test_pcg_matches(system, ref, dtype, rel):
     """Both PCGs apply the reference's preconditioner, so the comparison is
     of the PCG alone (the two dense float32 coarse inverses, LAPACK's LU and
     XLA's, of the cond ~1e6 coarse operator differ by ~6e-5 themselves).
     The float32 bar is 1e-3: on this 1e6-contrast system the reference's
     own float32 iterates move by 3.3e-4 x max when B is perturbed by 1e-7
     relative, so no float32 PCG that rounds differently can agree closer."""
+    jx, jnp = ref.jx, ref.jnp
     planes, B, s, plan = system
     S_t = stencil_from_numpy(planes.astype(dtype), plan, "cpu")
     S_j = jx.StencilBlockEll(jnp.asarray(planes.astype(dtype)), plan)
@@ -180,3 +203,91 @@ def test_pcg_matches(system, dtype, rel):
     assert X_t.dtype == S_t.planes.dtype
     assert it_t % 2 == 0 and abs(it_t - it_j) <= max(4, 0.1 * it_j)
     np.testing.assert_allclose(X_t.numpy(), X_j, rtol=0, atol=rel * np.abs(X_j).max())
+
+
+# -- on the card: the PCG replayed as CUDA graphs ------------------------------
+
+GRAPH_BISECTIONS = 4
+
+
+@pytest.fixture(scope="module")
+def card_systems():
+    """{case: (A, B with ||B|| = 1, M, dtype, unroll)} on the card: the
+    stencil2 bench's operator (``plane_spmv``) with its deflation M in
+    float32, and its symmetric form (``sym_plane_spmv``) in float64 with
+    the block-Jacobi M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    bench = build_spe10_bench(GRAPH_BISECTIONS, device="cuda")
+    S, B, s = bench.assemble(bench.field)
+    S, M = bench.precondition(S, s)
+    S64 = S.symmetrized().astype(torch.float64)
+    B64 = B.to(torch.float64)
+    return {"deflation_f32": (S, B / torch.linalg.norm(B), M, torch.float32, 2),
+            "jacobi_f64": (S64, B64 / torch.linalg.norm(B64), pt.jacobi_smoother(S64),
+                           torch.float64, 4)}
+
+
+def _eager(A, B, M, dtype, unroll, rtol=1e-5):
+    return pt._eager_pcg(A, B, M, rtol, 2000, unroll, dtype, dtype, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deflation_f32", "jacobi_f64"])
+def test_graphed_pcg_bitwise_equals_eager_on_card(card_systems, case):
+    A, B, M, dtype, unroll = card_systems[case]
+    X_e, k_e = _eager(A, B, M, dtype, unroll)
+    with recording() as rec:
+        X_g, k_g = pt.stencil_pcg(A, B, M, rtol=1e-5, maxiter=2000, unroll=unroll)
+    assert k_g == k_e > 0 and k_g % unroll == 0
+    assert X_g.dtype == dtype and torch.equal(X_g, X_e)
+    assert rec.total("pcg.graph.captures") == 2 and rec.total("pcg.graph.eager_fallbacks") == 0
+    assert rec.total("pcg.graph.replays") == k_g + 1 == rec.total("pcg.iterations") + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deflation_f32", "jacobi_f64"])
+def test_graphed_pcg_counts_the_eager_launches_on_card(card_systems, case):
+    """The launches counted while capturing count again at each replay, so
+    the kernels' counters read as the eager loop's."""
+    A, B, M, dtype, unroll = card_systems[case]
+    with recording() as eager:
+        _, k_e = _eager(A, B, M, dtype, unroll)
+    with recording() as graphed:
+        _, k_g = pt.stencil_pcg(A, B, M, rtol=1e-5, maxiter=2000, unroll=unroll)
+    kernel = "sym_plane_spmv" if A.sym else "plane_spmv"
+    assert k_g == k_e and eager.total("kernel." + kernel) == k_e
+    assert graphed.totals_under("kernel.") == eager.totals_under("kernel.")
+
+
+@pytest.mark.cuda
+def test_refined_solve_captures_once_on_card(card_systems):
+    """Every sweep of one refined solve replays the graphs of the first."""
+    A, B, M, _, _ = card_systems["deflation_f32"]
+    with recording() as rec:
+        X, res, iters, sweeps = pt.stencil_refined_solve(A, B, M, tol=1e-6, inner_iters=150,
+                                                          inner_rtol=1e-3, unroll=2)
+    assert sweeps >= 2 and res <= 1e-6 and X.dtype == torch.float64
+    assert rec.total("pcg.graph.captures") == 2 and rec.total("pcg.graph.eager_fallbacks") == 0
+    assert rec.total("pcg.iterations") == iters
+    assert rec.total("pcg.graph.replays") == iters + sweeps
+    assert len(rec.seconds("pcg.graph.capture")) == 1
+
+
+@pytest.mark.cuda
+def test_pcg_falls_back_for_a_preconditioner_that_syncs_on_card(card_systems):
+    """An M that reads a device value cannot be captured: the PCG runs it
+    op by op, to the eager loop's iterates, and counts the case."""
+    A, B, M, dtype, unroll = card_systems["jacobi_f64"]
+
+    def syncing(R):
+        host_read(R.reshape(-1)[0])
+        return M(R)
+
+    X_e, k_e = _eager(A, B, syncing, dtype, unroll)
+    with recording() as rec:
+        X_f, k_f = pt.stencil_pcg(A, B, syncing, rtol=1e-5, maxiter=2000, unroll=unroll)
+    assert k_f == k_e and torch.equal(X_f, X_e)
+    assert rec.total("pcg.graph.eager_fallbacks") == 1
+    assert rec.total("pcg.graph.captures") == 0 and rec.total("pcg.graph.replays") == 0
+    assert len(rec.seconds("precond.apply")) == k_f + 1

@@ -262,3 +262,45 @@ def test_host_syncs_match_the_solve(solved):
             by_span[s.name] += s.counts["host.syncs"]
     assert dict(by_span) == expected
     assert rec.total("host.syncs") == sum(expected.values())
+
+
+def test_cpu_solve_takes_no_graph(solved):
+    """On the CPU the PCG runs op by op: no graph is captured or replayed."""
+    rec, _, _, _, _ = solved
+    assert not [name for name in rec.totals if name.startswith("pcg.graph.")]
+    assert not rec.seconds("pcg.graph.capture")
+
+
+def test_host_syncs_refuse_a_graph_capture():
+    """While the current CUDA stream captures a graph (patched: no capture
+    runs on the CPU), a read of a device value and a copy to the device
+    raise ``SyncInCapture`` before they wait or count; outside one they run."""
+    with recording() as rec:
+        with mock.patch("torch.cuda.is_available", return_value=True), \
+                mock.patch("torch.cuda.is_current_stream_capturing", return_value=True):
+            with pytest.raises(profiling.SyncInCapture):
+                profiling.host_read(torch.ones(()))
+            with pytest.raises(profiling.SyncInCapture):
+                profiling.upload([1.0, 2.0], "cpu")
+        assert rec.total("host.syncs") == 0
+        assert profiling.host_read(torch.ones(())) == 1.0
+        assert profiling.upload([1.0, 2.0], "cpu").tolist() == [1.0, 2.0]
+    assert rec.total("host.syncs") == 2
+
+
+def test_captured_counts_count_at_each_replay():
+    """Counts made while a graph is captured stay out of the record; each
+    replay adds them, on the span open then."""
+    with recording() as rec:
+        with span("pcg"):
+            with profiling.captured_counts() as counts:
+                count("kernel.a")
+                count("kernel.a")
+                count("kernel.b", 3)
+            assert rec.totals == {}
+            for _ in range(3):
+                for name, n in counts.items():
+                    count(name, n)
+    assert counts == {"kernel.a": 2, "kernel.b": 3}
+    assert rec.totals == {"kernel.a": 6, "kernel.b": 9}
+    assert rec.spans[0].counts == rec.totals
