@@ -3,7 +3,8 @@
 Counterpart of ``dune_hdd_tpu/affine.py``.  The payloads are anything with
 scalar ``*`` and ``+``: tensors, ``SparseMatrix``, ``BlockEllMatrix``.
 Freezing multiplies each payload by theta_q(mu) as a Python float, so a
-payload on the card meets no host tensor.
+payload on the card meets no host tensor; it counts the components it sums
+in ``freeze.components`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Callable, Generic, List, Optional, Sequence, TypeVar
 import torch
 
 from .parameters import ConstantFunctional, Parameter, ParameterFunctional, ParameterType
+from .utils.profiling import count
 
 T = TypeVar("T")
 
@@ -84,6 +86,7 @@ class AffineDecomposition(Generic[T]):
                 raise ValueError("empty affine decomposition")
             return self.affine_part
         thetas = [float(c(mu)) for c in self.coefficients]
+        count("freeze.components", self.num_components)
         acc = self.components[0] * thetas[0]
         for q in range(1, self.num_components):
             acc = acc + self.components[q] * thetas[q]

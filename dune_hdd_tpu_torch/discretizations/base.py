@@ -22,6 +22,7 @@ from ..la.sparse import SparseMatrix
 from ..ops.spaces import Space
 from ..parameters import Parameter, ParameterType, parameter_key, parse_parameter
 from ..problems.interfaces import Problem
+from ..utils.profiling import span
 
 __all__ = ["StationaryDiscretization"]
 
@@ -134,16 +135,25 @@ class StationaryDiscretization:
         return u
 
     def uncached_solve(self, mu: Parameter, options: Optional[Dict] = None) -> torch.Tensor:
-        rhs = self._rhs.freeze(mu)
-        op = self._operator.freeze(mu)
-        if self.purely_neumann:
-            # pin DoF 0 (unit row, rhs 0), then subtract the mean afterwards
-            mask = np.zeros(op.shape[0], dtype=bool)
-            mask[0] = True
-            op = op.with_constrained_rows(mask, unit_diagonal=True)
-            op = op.with_constrained_cols(mask, keep_unit_diag=True)
-            rhs = rhs.clone()
-            rhs[0] = 0.0
+        """The system frozen at mu and solved by the solver ``options`` name.
+        Runs in a ``solve`` span (``utils/profiling.py``)."""
+        with span("solve", device=True):
+            return self._uncached_solve(mu, options)
+
+    def _uncached_solve(self, mu: Parameter, options: Optional[Dict]) -> torch.Tensor:
+        """The general path of ``la/solvers.py``: the freeze in a ``freeze``
+        span, then the solver."""
+        with span("freeze", device=True):
+            rhs = self._rhs.freeze(mu)
+            op = self._operator.freeze(mu)
+            if self.purely_neumann:
+                # pin DoF 0 (unit row, rhs 0), then subtract the mean afterwards
+                mask = np.zeros(op.shape[0], dtype=bool)
+                mask[0] = True
+                op = op.with_constrained_rows(mask, unit_diagonal=True)
+                op = op.with_constrained_cols(mask, keep_unit_diag=True)
+                rhs = rhs.clone()
+                rhs[0] = 0.0
         info: Dict = {}
         u = la_solve(op, rhs, options, info=info)
         self.last_solve_info = {"type": dict(options or {}).get("type", solver_types()[0]), **info}

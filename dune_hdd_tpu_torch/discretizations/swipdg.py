@@ -309,14 +309,9 @@ class SWIPDGDiscretization(StationaryDiscretization):
     def init(self):
         return self
 
-    def uncached_solve(self, mu, options=None):
-        """Adds "block_cg[.jacobi]" and "stencil_cg" (see the module
-        docstring) to the solver types of ``la/solvers.py``.  Runs in a
-        ``solve`` span (``utils/profiling.py``)."""
-        with span("solve", device=True):
-            return self._uncached_solve(mu, options)
-
     def _uncached_solve(self, mu, options):
+        """Adds "block_cg[.jacobi]" and "stencil_cg" (see the module
+        docstring) to the solver types of ``la/solvers.py``."""
         opts = dict(options or {})
         if str(opts.get("type", "")) == "stencil_cg":
             u = self._stencil_solve(mu, opts)
@@ -333,7 +328,7 @@ class SWIPDGDiscretization(StationaryDiscretization):
             self.last_solve_info = {"type": "block_cg.jacobi", "iterations": iters,
                                     "relative_residual": float(res)}
             return u
-        return super().uncached_solve(mu, options)
+        return super()._uncached_solve(mu, options)
 
     def stencil_system(self, mu=None) -> Optional[StencilSystem]:
         """The diagonally scaled frozen system in the plane layout of

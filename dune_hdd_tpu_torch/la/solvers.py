@@ -10,6 +10,11 @@ masked to zero on the device), and the host reads the test once every
 ``CHECK_EVERY`` iterations, so the solution and iteration count are the
 ones of the loop that stops exactly, at one host sync per block.  GMRES
 (:func:`gmres`) reads its residual estimate once per Arnoldi step.
+``cg`` and ``bicgstab`` run in a span of their name (``utils/profiling.py``)
+and count their iterations in ``<name>.iterations``; their host reads
+(the stopping test, the count) go through ``host_read``, counted in
+``host.syncs``, and each application of the Jacobi preconditioner runs in a
+``precond.apply`` span.
 "direct" densifies up to 4096 rows and runs a sparse LU
 (``scipy.sparse.linalg.spsolve``) on the host above that.
 """
@@ -19,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import count, host_read, span
 from .sparse import SparseMatrix
 
 __all__ = ["solver_types", "solver_options", "solve", "make_preconditioner", "cg", "bicgstab",
@@ -56,7 +62,12 @@ def solver_options(type_: Optional[str] = None) -> Dict:
 def make_preconditioner(matrix: SparseMatrix, kind: str) -> Optional[Callable]:
     if kind == "jacobi":
         inv_diag = 1.0 / matrix.diagonal()
-        return lambda r: inv_diag * r
+
+        def jacobi(r):
+            with span("precond.apply"):
+                return inv_diag * r
+
+        return jacobi
     if kind in (None, "", "none"):
         return None
     raise ValueError(f"unknown preconditioner {kind!r}")
@@ -80,6 +91,13 @@ def cg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: flo
        atol: float = 0.0, maxiter: Optional[int] = None,
        M: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
     """Preconditioned CG; returns (x, iterations)."""
+    with span("cg", device=True):
+        x, iterations = _cg(A, b, x0, tol, atol, maxiter, M)
+        count("cg.iterations", iterations)
+    return x, iterations
+
+
+def _cg(A, b, x0, tol, atol, maxiter, M):
     maxiter = 10 * b.numel() if maxiter is None else int(maxiter)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     atol2 = _stop2(b, tol, atol)
@@ -94,7 +112,7 @@ def cg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: flo
     active = rs(r, gamma) > atol2
     iters = torch.zeros((), dtype=torch.long, device=b.device)
     for k in range(maxiter):
-        if k % CHECK_EVERY == 0 and not bool(active):
+        if k % CHECK_EVERY == 0 and not host_read(active):
             break
         Ap = A(p)
         alpha = _masked(active, gamma / _dot(p, Ap))
@@ -106,7 +124,7 @@ def cg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: flo
         gamma = gamma_new
         iters = iters + active
         active = active & (rs(r, gamma) > atol2)
-    return x, int(iters)
+    return x, host_read(iters)
 
 
 def bicgstab(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
@@ -114,6 +132,13 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
              M: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
     """Preconditioned BiCGSTAB with jax's early exit and breakdown stops;
     returns (x, iterations)."""
+    with span("bicgstab", device=True):
+        x, iterations = _bicgstab(A, b, x0, tol, atol, maxiter, M)
+        count("bicgstab.iterations", iterations)
+    return x, iterations
+
+
+def _bicgstab(A, b, x0, tol, atol, maxiter, M):
     maxiter = 10 * b.numel() if maxiter is None else int(maxiter)
     Mf = M or (lambda v: v)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
@@ -125,7 +150,7 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     active = _dot(r, r) > atol2
     iters = torch.zeros((), dtype=torch.long, device=b.device)
     for k in range(maxiter):
-        if k % CHECK_EVERY == 0 and not bool(active):
+        if k % CHECK_EVERY == 0 and not host_read(active):
             break
         rho_ = _dot(rhat, r)
         beta = rho_ / rho * alpha / omega
@@ -147,7 +172,7 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         breakdown = (omega_ == 0) | (alpha_ == 0) | (rho_ == 0)
         iters = iters + active
         active = active & ~breakdown & (_dot(r, r) > atol2)
-    return x, int(iters)
+    return x, host_read(iters)
 
 
 def gmres(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-5,

@@ -9,8 +9,9 @@ entries of each slot, in sorted order, are gathered through a padded
 gather and one row sum, deterministic on every device (no atomics).
 
 The matrix is applied in ELL layout (``[N, K]`` padded column/value
-arrays): gather, multiply, row-sum.  The ELL value array is built once per
-matrix, at its first product, and kept.
+arrays): gather, multiply, row-sum, in a ``matvec`` span
+(``utils/profiling.py``).  The ELL value array is built once per matrix, at
+its first product, and kept.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 __all__ = ["SparsityPattern", "SparseMatrix", "build_pattern"]
 
@@ -169,8 +172,9 @@ class SparseMatrix:
         return self.pattern.ell_values(self.values)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        gathered = x[self.pattern.on(x.device).ell_cols]  # [N, K]
-        return (self.ell * gathered).sum(dim=1)
+        with span("matvec"):
+            gathered = x[self.pattern.on(x.device).ell_cols]  # [N, K]
+            return (self.ell * gathered).sum(dim=1)
 
     __matmul__ = matvec
 

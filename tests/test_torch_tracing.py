@@ -1,9 +1,10 @@
 """The port's spans and counters (``utils/profiling.py``): the span tree and
 solve ids, the off path (no ``record_function``, no CUDA event, no
 allocation, no counter), the ``hdd::`` spans in a CPU profiler trace and
-their reduction by span, and the spans and counters of the two solve paths
-the benchmark drives (the SPE10 bench's ``fn`` and the SWIPDG snapshot
-solve), at small sizes on the CPU."""
+their reduction by span, and the spans and counters of the three solve
+paths the benchmark drives (the SPE10 bench's ``fn``, the SWIPDG snapshot
+solve, and the general path's freeze and ``cg.jacobi`` on the Q1 tensor
+thermalblock), at small sizes on the CPU."""
 from collections import Counter
 from types import SimpleNamespace
 from unittest import mock
@@ -304,3 +305,85 @@ def test_captured_counts_count_at_each_replay():
     assert counts == {"kernel.a": 2, "kernel.b": 3}
     assert rec.totals == {"kernel.a": 6, "kernel.b": 9}
     assert rec.spans[0].counts == rec.totals
+
+
+# -- the general path: Q1 tensor CG and la/solvers.cg --------------------------
+
+_CG_OPTS = {"type": "cg.jacobi", "precision": 1e-10, "max_iter": 20000}
+_MU3D = np.array([0.1, 1.0, 0.5, 0.2, 0.9, 0.3, 0.7, 0.45])
+
+
+@pytest.fixture(scope="module")
+def thermalblock_3d():
+    from dune_hdd_tpu_torch.cli.examples import ThermalblockExample
+    from dune_hdd_tpu_torch.parameters import parse_parameter
+
+    disc = ThermalblockExample(device="cpu").initialize_tensor(
+        dim=3, num_elements=6, num_blocks=(2, 2, 2)).discretization()
+    return disc, parse_parameter(_MU3D, disc.parameter_type)
+
+
+@pytest.fixture(scope="module")
+def cg_solved(thermalblock_3d):
+    disc, mu = thermalblock_3d
+    with recording() as rec:
+        u = disc.uncached_solve(mu, _CG_OPTS)
+    return rec, u, disc.last_solve_info["iterations"]
+
+
+def test_cg_solve_gives_the_span_tree(cg_solved):
+    """One general solve: ``solve`` holds the ``freeze`` of the 8 sparse
+    components and the ``cg``, which holds a ``matvec`` and a
+    ``precond.apply`` per executed iteration (blocks of ``CHECK_EVERY``,
+    the last ones masked) and one more for the initial residual."""
+    from dune_hdd_tpu_torch.la.solvers import CHECK_EVERY
+
+    rec, _, iters = cg_solved
+    paths = Counter(rec.path(i) for i in range(len(rec.spans)))
+    executed = -(-iters // CHECK_EVERY) * CHECK_EVERY
+    assert paths == {("solve",): 1, ("solve", "freeze"): 1, ("solve", "cg"): 1,
+                     ("solve", "cg", "matvec"): executed + 1,
+                     ("solve", "cg", "precond.apply"): executed + 1}
+    assert rec.solves() == [1]
+    freeze = next(s for s in rec.spans if s.name == "freeze")
+    assert freeze.counts == {"freeze.components": 16}  # the operator's 8 and the rhs's 8
+
+
+def test_cg_counts_its_iterations_and_host_reads(cg_solved):
+    """``cg.iterations`` is the solve's count; ``host.syncs`` on the ``cg``
+    span are the stopping test's reads, one before each block of
+    ``CHECK_EVERY`` and the one that stops it, and the read of the count."""
+    from dune_hdd_tpu_torch.la.solvers import CHECK_EVERY
+
+    rec, _, iters = cg_solved
+    assert 0 < iters < _CG_OPTS["max_iter"]
+    assert rec.total("cg.iterations") == iters
+    cg = next(s for s in rec.spans if s.name == "cg")
+    assert cg.counts == {"cg.iterations": iters, "host.syncs": -(-iters // CHECK_EVERY) + 2}
+    assert rec.total("host.syncs") == cg.counts["host.syncs"]
+
+
+def test_cg_off_records_nothing_and_solves_alike(thermalblock_3d, cg_solved):
+    """Off, the general solve opens no span and counts nothing, and its
+    answer is bitwise the recorded one's."""
+    disc, mu = thermalblock_3d
+    _, u_on, iters = cg_solved
+    with mock.patch.object(profiling, "_Open") as opened, \
+            mock.patch.object(profiling, "Record") as record:
+        u_off = disc.uncached_solve(mu, _CG_OPTS)
+    opened.assert_not_called()
+    record.assert_not_called()
+    assert profiling._REC is None
+    assert disc.last_solve_info["iterations"] == iters
+    assert torch.equal(u_off, u_on)
+
+
+def test_bicgstab_counts_its_iterations(thermalblock_3d):
+    from dune_hdd_tpu_torch.la.solvers import bicgstab, make_preconditioner
+
+    disc, mu = thermalblock_3d
+    A, b = disc.freeze_operator(mu), disc.freeze_rhs(mu)
+    with recording() as rec:
+        _, iters = bicgstab(A.matvec, b, tol=1e-8, M=make_preconditioner(A, "jacobi"))
+    assert iters > 0 and rec.total("bicgstab.iterations") == iters
+    assert [s.name for s in rec.spans if s.parent is None] == ["bicgstab"]
