@@ -96,14 +96,18 @@ the FVCA7 poster rows within 2e-3 of the recorded table); the tensor sine
 EOC (d = 1 to 1,024 cells, d = 2 to 512^2, d = 3 to 128^3; EOC 1.9 / 0.95);
 the 3D thermalblock at 128^3 cells (set-up by step, 8 cg.jacobi solves
 rechecked in float64 to 1e-8, mu = 1 against constant diffusion, the
-true-error greedy, the scalar-ELL SpMV against its bound); the same at 24^3
+true-error greedy); the scalar-ELL SpMV kernel against its plain version,
+timed against its bound and the CSR library call, on that operator and on
+the 1.57M-DoF SWIPDG thermalblock operator in f32 and f64, and its launches
+in one 3D solve; the same at 24^3
 with the Riesz-estimator greedy, its certification and the batched online
 sweep; the 2D TensorCG batched-online cases.  Then the plane SpMV's launches per
 instantiation and lattice with each one's share, a JSON line of the kernels
 (one row per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, one
 for its (256, 256) f64 lattice, one per structured_spmv nd, the nd-3 row's
-launches the deflation branch's, and sym_plane_spmv at nd 3 in f32 and f64
-at 12.29M DoF), the card's name and power limit, and last
+launches the deflation branch's, sym_plane_spmv at nd 3 in f32 and f64
+at 12.29M DoF, and ell_spmv on the 3D operator with its solve's launches),
+the card's name and power limit, and last
 {"ok": true, ...}.
 
     python3 chip_smoke.py --plane-rows [--library]
@@ -111,6 +115,10 @@ at 12.29M DoF), the card's name and power limit, and last
 builds the plane SpMV only and times it at the driven paths' lattices on
 random planes, against its bound (with --library also its plain version and
 the BSR call).
+
+    python3 chip_smoke.py --ell-spmv
+
+builds the scalar-ELL SpMV and runs its phase only (about two minutes).
 
     python3 chip_smoke.py --alt-solvers
 
@@ -158,6 +166,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # not a Pallas kernel: the reference's XLA half-storage symmetric matvec
     "sym_plane_spmv": ("dune_hdd_tpu_torch/csrc/sym_plane_spmv.cu",
                        "dune_hdd_tpu/la/stencil.py:227"),
+    # not a Pallas kernel: the reference's XLA gather, product and row sum
+    "ell_spmv": ("dune_hdd_tpu_torch/csrc/ell_spmv.cu", "dune_hdd_tpu/la/sparse.py:164"),
 }
 _T0 = time.perf_counter()
 _LAST = [_T0]
@@ -274,7 +284,7 @@ def ptxas_summary(compiler_log):
     return out
 
 
-def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv")):
+def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv", "ell_spmv")):
     """One nvcc per source, all started together; prints each kernel
     function's registers, static shared memory, stack and spills, and fails
     on a spill or a stack frame of either plane SpMV."""
@@ -287,9 +297,9 @@ def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv
             nvcc_seconds=f"{seconds:.2f}")
         for fn, info in ptxas_summary(compiler_log).items():
             log("ptxas", kernel=name, function=fn, **info)
-            if name in ("plane_spmv", "sym_plane_spmv") and (
+            if name in ("plane_spmv", "sym_plane_spmv", "ell_spmv") and (
                     info["stack"] or info["spill_stores"] or info["spill_loads"]):
-                raise AssertionError(f"plane_spmv {fn}: stack frame or spills {info}")
+                raise AssertionError(f"{name} {fn}: stack frame or spills {info}")
     if "plane_spmv" in names:
         log_plane_geometry()
 
@@ -2842,8 +2852,8 @@ def phase_thermalblock_3d(dev):
     ||b - A u|| / ||b|| <= 1e-8, mu = 1 against the constant-diffusion solve
     to 1e-10, the true-error RB greedy (16 training mu from default_rng(7),
     5 extensions, gram_schmidt in h1_semi: the maximum errors decrease), the
-    reduced model's relative h1_semi errors at the 8 mu, and the plain
-    scalar-ELL SpMV timed against its bound."""
+    reduced model's relative h1_semi errors at the 8 mu (the SpMV's own
+    phase is ``phase_ell_spmv``)."""
     from dune_hdd_tpu_torch.cli.examples import ThermalblockExample
     from dune_hdd_tpu_torch.discretizations import TensorCGDiscretization
     from dune_hdd_tpu_torch.mor import greedy_rb
@@ -2912,17 +2922,110 @@ def phase_thermalblock_3d(dev):
             and all(math.isfinite(e) for e in rel)):
         raise AssertionError(f"3D greedy: {res.max_errors}, {rel}")
 
-    A = d.freeze_operator(mus[0])
-    gen = torch.Generator(device="cpu").manual_seed(19)
-    x = torch.randn(n, generator=gen, dtype=torch.float64).to(dev)
-    k = A.ell.shape[1]
-    ms = time_calls(lambda: A.matvec(x))
-    nbytes = n * k * 16 + 2 * n * 8  # values + int64 columns + x + y
-    log("plain_spmv_timing", op="SparseMatrix.matvec", case="thermalblock 3D Q1", dofs=n,
-        ell_width=k, float64=True, us=f"{ms * 1e3:.2f}",
-        device_ops_per_call=count_device_ops(lambda: A.matvec(x)), bytes=nbytes,
-        gbps=f"{nbytes / ms / 1e6:.1f}", bound_us=f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f}",
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", card=repr(card()))
+
+def ell_bytes(A) -> int:
+    """The bytes one product with the ELL matrix ``A`` must move: each
+    stored value and its 4-byte column read once, x read and y written
+    once (padding excluded)."""
+    es = A.values.element_size()
+    return A.pattern.nnz * (es + 4) + sum(A.shape) * es
+
+
+def csr_operator(A):
+    """``A`` as a torch.sparse CSR tensor: the library yardstick of the ELL
+    SpMV (timed here, used nowhere in the port)."""
+    idx = A.pattern.on(A.device)
+    counts = torch.bincount(idx.slot_rows, minlength=A.shape[0])
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return torch.sparse_csr_tensor(crow, idx.slot_cols.to(torch.int32), A.values, size=A.shape)
+
+
+def check_ell_spmv(A, label, seed):
+    """The kernel against its plain version on ``A`` (1e-13 x max|y| in
+    float64, 1e-5 in float32), two calls bitwise equal, the CSR library
+    call within 10x that; then kernel, plain version and library call
+    timed.  Returns the timing fields of the kernels line."""
+    from dune_hdd_tpu_torch.kernels.ell_spmv import (_sms, ell_geometry, ell_spmv,
+                                                     ell_spmv_reference)
+
+    dtype = A.values.dtype
+    rel = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+    cols = A.pattern.on(A.device).ell_cols
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(A.shape[1], generator=gen, dtype=torch.float64).to(A.device, dtype)
+    y, y_ref = ell_spmv(A.ell, cols, x), ell_spmv_reference(A.ell, cols, x)
+    err = rel_check(f"ell_spmv vs plain ({label})", y, y_ref, rel)
+    if not torch.equal(y, ell_spmv(A.ell, cols, x)):
+        raise AssertionError(f"ell_spmv ({label}): two calls differ")
+    C = csr_operator(A)
+    e_lib = rel_check(f"CSR library call vs ell_spmv ({label})", C @ x, y, 10 * rel)
+    n, K = A.ell.shape
+    R, threads, smem = ell_geometry(n, K, A.values.element_size(), _sms(A.device))
+    row = timed("ell_spmv", label, lambda: ell_spmv(A.ell, cols, x),
+                lambda: ell_spmv_reference(A.ell, cols, x), lambda: C @ x, ell_bytes(A),
+                2 * A.pattern.nnz, dtype, rows=n, ell_width=K, nnz=A.pattern.nnz,
+                tile_rows=R, threads=threads, smem_bytes=smem, max_abs_err=f"{err:.3e}",
+                library_max_abs_diff=f"{e_lib:.3e}")
+    del C, x, y, y_ref
+    return row, err
+
+
+def phase_ell_spmv(dev, swipdg_bisections=14):
+    """The scalar-ELL SpMV kernel (``SparseMatrix.matvec``) on the card: on
+    the 3D [2 2 2] thermalblock Q1 operator at 128^3 cells (2,146,689 rows,
+    K = 27, float64) and on the 2x2 thermalblock SWIPDG operator at
+    ``swipdg_bisections`` bisections in float32 and float64, each against
+    its plain version and timed against its bound, the plain version and
+    the torch.sparse CSR product; then one float64 cg.jacobi solve of the 3D
+    operator, which must launch the kernel once for the initial residual
+    and once a CG step (the iterations, rounded up to the solver's next
+    host check).  Returns
+    {row name: (timing fields, max abs error)}; the 3D row's fields hold
+    the solve's launches."""
+    from dune_hdd_tpu_torch.cli.examples import ThermalblockExample
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
+    from dune_hdd_tpu_torch.la.solvers import CHECK_EVERY
+    from dune_hdd_tpu_torch.la.sparse import SparseMatrix
+    from dune_hdd_tpu_torch.problems import ThermalblockProblem
+
+    rows = {}
+    d = ThermalblockExample(device=dev).initialize_tensor(
+        dim=3, num_elements=TB3D_CELLS, num_blocks=(2, 2, 2)).discretization()
+    mu = tb3d_mus(17, 1)[0]
+    A = d.freeze_operator(mu)
+    row, err = check_ell_spmv(A, "3D Q1 f64", 31)
+    with recording() as rec:
+        u, seconds = timed_solve(d, mu, TB3D_OPTS)
+    iters, launches = d.last_solve_info["iterations"], rec.total("kernel.ell_spmv")
+    b = d.freeze_rhs(mu)
+    res = float(torch.linalg.norm(b - A.matvec(u)) / torch.linalg.norm(b))
+    log("ell_spmv_solve", case="3D Q1 cg.jacobi f64", iterations=iters, launches=launches,
+        seconds=f"{seconds:.3f}", ms_per_iteration=f"{seconds / iters * 1e3:.3f}",
+        rel_residual_f64=f"{res:.3e}")
+    # the initial residual, then one a CG step: the steps masked past the
+    # stopping test up to its next host check (la/solvers.CHECK_EVERY) too
+    steps = -(-iters // CHECK_EVERY) * CHECK_EVERY
+    if not (launches == steps + 1 and res <= 1e-8):
+        raise AssertionError(f"3D solve: {launches} launches for {iters} iterations "
+                             f"({steps} steps), residual {res:.3e}")
+    rows["ell_spmv_f64_3d_q1"] = (dict(row, launches=launches), err)
+    del d, A, b, u
+    torch.cuda.empty_cache()
+
+    grid = alu_cube_grid((0, 0), (1, 1), (4, 4), refinements=swipdg_bisections)
+    d = SWIPDGDiscretization(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"},
+                             ThermalblockProblem((2, 2)), device=dev)
+    A = d.freeze_operator(np.full(4, 0.5))
+    for dtype in (torch.float32, torch.float64):
+        Ad = SparseMatrix(A.pattern, A.values.to(dtype))
+        name = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        row, err = check_ell_spmv(Ad, f"SWIPDG thermalblock {name}", 37)
+        rows[f"ell_spmv_{name}_swipdg"] = (row, err)
+        del Ad
+    del d, A
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_thermalblock_3d_riesz(dev):
@@ -3081,10 +3184,10 @@ def count_device_ops(fn):
 
 
 def time_general_spmvs(d, mu, like):
-    """Device time of the general path's two plain-torch SpMVs (candidates
-    for later hand kernels) on the frozen float64 operator: the scalar ELL
-    SparseMatrix.matvec and the block-ELL BlockEllMatrix.matvec; bytes =
-    values + column indices + x + y."""
+    """Device time of the general path's two SpMVs on the frozen float64
+    operator: the scalar ELL SparseMatrix.matvec (the ell_spmv kernel) and
+    the block-ELL BlockEllMatrix.matvec (plain torch); bytes = values +
+    column indices + x + y."""
     from dune_hdd_tpu_torch.la.block_ell import block_ell_from_sparse
 
     A = d.freeze_operator(mu)
@@ -3092,8 +3195,8 @@ def time_general_spmvs(d, mu, like):
     gen = torch.Generator(device="cpu").manual_seed(18)
     x = torch.randn(like.shape, generator=gen, dtype=like.dtype).to(like.device)
     rel_check("BlockEllMatrix.matvec vs SparseMatrix.matvec", Ab.matvec(x), A.matvec(x), 1e-12)
-    n, k = A.ell.shape
-    cases = {"SparseMatrix.matvec": (lambda: A.matvec(x), n * k * 16 + 2 * n * 8),
+    n = A.shape[0]
+    cases = {"SparseMatrix.matvec": (lambda: A.matvec(x), ell_bytes(A)),
              "BlockEllMatrix.matvec": (lambda: Ab.matvec(x),
                                        Ab.blocks.numel() * 8 + Ab.neighbors.size * 8 + 2 * n * 8)}
     for name, (fn, nbytes) in cases.items():
@@ -3173,6 +3276,7 @@ def main():
     phase_tensor_eoc(dev)
     phase_thermalblock_3d(dev)
     torch.cuda.empty_cache()
+    ell_rows = phase_ell_spmv(dev)
     phase_thermalblock_3d_riesz(dev)
     phase_tensor_mor_batch(dev)
     phase_os2014_parametric(dev)
@@ -3214,17 +3318,24 @@ def main():
             "sym_plane_spmv_nd3_f64": (dict(sym_times["float64"],
                                             launches=SYM_PATH_LAUNCHES["nd3_f64"]), sym_err),
             **higher_rows, **slab_rows}
+    rows.update({name: r for name, r in ell_rows.items() if "launches" in r[0]})
     for name, (row, _) in rows.items():
         if not row["launches"] > 0:
             raise AssertionError(f"{name}: no launch on its path")
     print(json.dumps({"kernels": [dict(
-        name=name, route="cuda", source=KERNELS[name.split("_nd")[0]][0],
-        replaces=KERNELS[name.split("_nd")[0]][1], max_abs_err=err, **row)
+        name=name, route="cuda", source=KERNELS[kernel_of(name)][0],
+        replaces=KERNELS[kernel_of(name)][1], max_abs_err=err, **row)
         for name, (row, err) in rows.items()]}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def kernel_of(row: str) -> str:
+    """The KERNELS entry of a kernels-line row: the longest name it starts
+    with."""
+    return max((k for k in KERNELS if row.startswith(k)), key=len)
 
 
 def main_sharded():
@@ -3279,6 +3390,19 @@ def main_symmetric():
     print(card())
 
 
+def main_ell_spmv():
+    """``--ell-spmv``: build the scalar-ELL SpMV and run its phase only
+    (the 3D and SWIPDG operators, the 3D solve), then the kernels line."""
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(("ell_spmv",))
+    rows = phase_ell_spmv(dev)
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=KERNELS["ell_spmv"][0], replaces=KERNELS["ell_spmv"][1],
+        max_abs_err=err, **row) for name, (row, err) in rows.items()]}))
+    print(card())
+
+
 def main_plane_rows():
     """``--plane-rows``: build plane_spmv and time it at PLANE_ROWS only
     (kernel against bound; ``--library`` adds the plain and BSR times)."""
@@ -3306,6 +3430,8 @@ def main_alt_solvers():
 if __name__ == "__main__":
     if "--plane-rows" in sys.argv:
         main_plane_rows()
+    elif "--ell-spmv" in sys.argv:
+        main_ell_spmv()
     elif "--alt-solvers" in sys.argv:
         main_alt_solvers()
     elif "--sharded" in sys.argv:

@@ -8,10 +8,11 @@ entries of each slot, in sorted order, are gathered through a padded
 ``[nnz, max duplicates]`` table and summed along its rows, which is one
 gather and one row sum, deterministic on every device (no atomics).
 
-The matrix is applied in ELL layout (``[N, K]`` padded column/value
-arrays): gather, multiply, row-sum, in a ``matvec`` span
-(``utils/profiling.py``).  The ELL value array is built once per matrix, at
-its first product, and kept.
+The matrix is applied in ELL layout (``[N, K]`` padded value array and
+int32 column array), in a ``matvec`` span (``utils/profiling.py``): by the
+hand-written scalar-ELL SpMV on a card, by its plain version (gather,
+multiply, row-sum) on the CPU (``kernels/ell_spmv.py``).  The ELL value
+array is built once per matrix, at its first product, and kept.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..kernels.ell_spmv import ell_spmv
 from ..utils.profiling import span
 
 __all__ = ["SparsityPattern", "SparseMatrix", "build_pattern"]
@@ -29,7 +31,7 @@ __all__ = ["SparsityPattern", "SparseMatrix", "build_pattern"]
 
 class _DeviceIndex(NamedTuple):
     seg_table: torch.Tensor     # [nnz, D] raw-entry index per slot, padded with E
-    ell_cols: torch.Tensor      # [N, K]
+    ell_cols: torch.Tensor      # [N, K] int32
     slot_ell_pos: torch.Tensor  # [nnz]
     diag_slot: torch.Tensor     # [N], -1 where absent
     slot_rows: torch.Tensor     # [nnz]
@@ -78,10 +80,10 @@ class SparsityPattern:
         """The index arrays as tensors on ``device``, copied once."""
         key = str(device)
         if key not in self._on_device:
-            def t(a):
-                return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
+            def t(a, dtype=np.int64):
+                return torch.as_tensor(np.asarray(a, dtype=dtype)).to(device)
             self._on_device[key] = _DeviceIndex(
-                t(self.seg_table), t(self.ell_cols), t(self.slot_ell_pos),
+                t(self.seg_table), t(self.ell_cols, np.int32), t(self.slot_ell_pos),
                 t(self.diag_slot), t(self.slot_rows), t(self.slot_cols))
         return self._on_device[key]
 
@@ -173,14 +175,14 @@ class SparseMatrix:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         with span("matvec"):
-            gathered = x[self.pattern.on(x.device).ell_cols]  # [N, K]
-            return (self.ell * gathered).sum(dim=1)
+            return ell_spmv(self.ell, self.pattern.on(x.device).ell_cols, x.contiguous())
 
     __matmul__ = matvec
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         """A @ X for X [N, K]: one row gather amortised over the K columns."""
-        gathered = X[self.pattern.on(X.device).ell_cols]  # [N, Kell, K]
+        cols = self.pattern.on(X.device).ell_cols
+        gathered = X.index_select(0, cols.reshape(-1)).reshape(*cols.shape, -1)  # [N, Kell, K]
         return torch.einsum("nk,nkK->nK", self.ell, gathered)
 
     def diagonal(self) -> torch.Tensor:

@@ -16,6 +16,7 @@ def test_port_imports_no_jax():
         "import dune_hdd_tpu_torch, dune_hdd_tpu_torch.bench_harness, dune_hdd_tpu_torch.convert\n"
         "import dune_hdd_tpu_torch.profile_bench, chip_smoke\n"
         "import dune_hdd_tpu_torch.kernels.probe, dune_hdd_tpu_torch.kernels.structured_spmv\n"
+        "import dune_hdd_tpu_torch.kernels.ell_spmv\n"
         "import dune_hdd_tpu_torch.parameters, dune_hdd_tpu_torch.affine, dune_hdd_tpu_torch.device\n"
         "import dune_hdd_tpu_torch.functions.base, dune_hdd_tpu_torch.functions.esv2007\n"
         "import dune_hdd_tpu_torch.problems, dune_hdd_tpu_torch.grid.hierarchy\n"
