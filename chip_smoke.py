@@ -557,12 +557,11 @@ def block_residual64(A, b, s, u):
 def plane_residual64(S, B, s, u, to_soa):
     """The same for the plane system (S, B): float64, the plain version of
     the SpMV that S applies (the half-storage one where S is symmetric)."""
-    from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference
-    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv_reference
+    from dune_hdd_tpu_torch.kernels.sym_plane_spmv import plain_version
 
     B64 = B.double()
     X = u[to_soa].reshape(B.shape) / s.double()
-    plain = sym_plane_spmv_reference if S.sym else plane_spmv_reference
+    plain = plain_version(S.spmv)
     return ((B64 - plain(S.planes.double(), X, S.plan)).norm() / B64.norm()).item()
 
 

@@ -181,9 +181,6 @@ class Spe10Bench(NamedTuple):
     preconditioner: str  # the branch
 
 
-_highest_precision = highest_precision
-
-
 class _BenchGeometry(NamedTuple):
     grid: object             # the ALU-bisected 100 x 20 grid
     binfo: object            # its all-Dirichlet boundary info
@@ -274,9 +271,13 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
                       structured: Callable = structured_spmv) -> Spe10Bench:
     """Set up the bench at ``bisections`` (even) on ``device`` (the card
     unless the caller passes ``device="cpu"``; raises without one) for the
-    ``preconditioner`` branch (module docstring).  ``spmv`` / ``structured``
-    are the plane and structured SpMVs the operator applies (the CUDA
-    kernels' plain versions can be substituted for comparison); ``macro`` is
+    ``preconditioner`` branch (module docstring).  ``spmv`` is the
+    full-plane SpMV of the operator, ``plane_spmv`` or its plain version
+    ``plane_spmv_reference``; where the settings use half storage (8
+    bisections and more) the operator applies the half-storage SpMV of the
+    same family (``kernels/sym_plane_spmv.half_storage``), so a substituted
+    plain version stays plain.  ``structured`` is the structured SpMV, the
+    kernel or its plain version; ``macro`` is
     the exact coarse lattice of the deflation preconditioners (the
     permeability grid by default; ValueError if it does not tile the
     lattice); ``smoother`` ("jacobi" or "cheb<k>") and ``pc2`` ("deflation"
@@ -303,7 +304,7 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
                          "route there; the port raises)")
     mid_shape = _select_mid_level(KY, KX, macro)
     settings = _solver_settings(bisections, (KY, KX))
-    _highest_precision()
+    highest_precision()
     device = resolve_device(device)
     geo = _bench_geometry(bisections, device)
     order = geo.order
@@ -483,7 +484,7 @@ def stencil2_roofline(bisections: int = 6, repeats: int = 7, pcg_iters: int = 10
     ``_bench_geometry``; runs on ``device`` (the card unless the caller
     asks for the CPU).  Unlike the reference's, the numbers are not
     rounded."""
-    _highest_precision()
+    highest_precision()
     device = resolve_device(device)
     geo = _bench_geometry(bisections, device)
     field = torch.as_tensor(_synthetic_model1_field(), dtype=torch.float32, device=device)
@@ -602,7 +603,7 @@ def block_provenance_check(bisections: int = 2, partitioning=(20, 4), nvec: int 
     ``nvec`` random vectors; rel_op and rel_rhs <= 1e-4.  Runs on ``device``
     (the card unless the caller asks for the CPU); raises AssertionError
     past the gate, else returns the record."""
-    _highest_precision()
+    highest_precision()
     device = resolve_device(device)
     bisections -= bisections % 2  # the structured order needs even bisections
     geo = _bench_geometry(bisections, device)

@@ -13,20 +13,26 @@ plane twice, forward and transposed at the inverse shift.  This is
 (dune_hdd_tpu/la/stencil.py:209-260).  CUDA tensors go to the hand-written
 kernel (``csrc/sym_plane_spmv.cu``), CPU tensors to
 ``sym_plane_spmv_reference``; both add in the reference's order.
+
+``spmv_pairs`` pairs each full-plane SpMV with its half-storage partner, the
+kernels and their plain versions apart: ``half_storage`` and
+``plain_version`` read that one table.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import Callable
 
 import torch
 
 from ..utils.profiling import count_launch
 from . import build
+from . import plane_spmv as _full
 from .plane_spmv import _DTYPES, _check
 
 __all__ = ["sym_plane_spmv", "sym_plane_spmv_reference", "sym_forward_edges", "sym_schedule",
-           "sym_plane_bytes"]
+           "sym_plane_bytes", "spmv_pairs", "half_storage", "plain_version"]
 
 
 @lru_cache(maxsize=None)
@@ -164,3 +170,31 @@ def sym_plane_spmv(W: torch.Tensor, X: torch.Tensor, plan) -> torch.Tensor:
         raise RuntimeError(f"sym_plane_spmv launch failed: cudaError {err}")
     count_launch("sym_plane_spmv", W)
     return Y
+
+
+def spmv_pairs() -> tuple:
+    """The plane SpMVs as (full planes, half storage) pairs of one family
+    each: the hand-written kernels, then their plain versions.  Read from
+    the modules at each call, so a function replaced there (a test's
+    counting spy) takes its place in the pairs."""
+    return ((_full.plane_spmv, sym_plane_spmv),
+            (_full.plane_spmv_reference, sym_plane_spmv_reference))
+
+
+def half_storage(spmv) -> Callable:
+    """The half-storage SpMV of ``spmv``'s family (``spmv`` itself where it
+    is one).  Raises ValueError for a callable that is no plane SpMV."""
+    for pair in spmv_pairs():
+        if any(spmv is f for f in pair):
+            return pair[1]
+    raise ValueError(f"{spmv!r} is not a plane SpMV of `spmv_pairs`")
+
+
+def plain_version(spmv) -> Callable:
+    """The plain version of the plane SpMV ``spmv``, of the same storage.
+    Raises ValueError for a callable that is no plane SpMV."""
+    kernels, plain = spmv_pairs()
+    for f, p in zip(kernels + plain, plain + plain):
+        if spmv is f:
+            return p
+    raise ValueError(f"{spmv!r} is not a plane SpMV of `spmv_pairs`")

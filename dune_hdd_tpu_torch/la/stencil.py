@@ -21,9 +21,9 @@ Spans and counters (``utils/profiling.py``; recorded only while recording):
 where it runs op by op, ``refine.residual`` around each float64 residual of
 the refinement, and ``host.syncs`` at each point where the host waits for
 the device: a read of a device value, ``torch.linalg``'s check of its
-result, and a copy from host memory to the device.  On CUDA the PCG runs as
-CUDA graphs (`_PcgGraphs`: ``pcg.graph.capture`` and the ``pcg.graph.*``
-counters).
+result, and a copy from host memory to the device.  The PCG is one loop,
+`_Pcg`, which on CUDA runs as CUDA graphs (``pcg.graph.capture`` and the
+``pcg.graph.*`` counters).
 """
 from __future__ import annotations
 
@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from ..kernels.plane_spmv import plane_spmv
-from ..kernels.sym_plane_spmv import sym_forward_edges, sym_plane_spmv
-from ..utils.profiling import (SyncInCapture, captured_counts, count, host_read, span,
-                               upload)
+from ..kernels.sym_plane_spmv import half_storage, spmv_pairs, sym_forward_edges
+from ..utils.profiling import (SyncInCapture, captured_counts, capturing, count, host_read,
+                               span, upload)
 from .block_ell import BlockEllMatrix, StructuredBlockEll, inv3x3
 
 __all__ = [
@@ -105,28 +105,27 @@ def soa_index_maps(order, nd: int) -> _SoAMaps:
 
 class StencilBlockEll:
     """planes [4, nd, nd, 8, KY, KX] (slot 0 = self); plan: 8x3 static
-    (k_src, dy, dx) lattice shifts.  ``spmv(planes, X, plan)`` applies the
-    operator; it is the hand-written kernel unless a caller substitutes its
-    plain version.
+    (k_src, dy, dx) lattice shifts.  ``spmv(planes, X, plan)`` is the one
+    SpMV :meth:`matvec` applies: the hand-written kernel unless a caller
+    substitutes its plain version.
 
-    ``sym=True`` switches :meth:`matvec` to the half-storage symmetric form,
-    the kernel ``sym_plane_spmv`` (the reference's ``_matvec_sym``): the
-    SWIPDG operator is symmetric, so each undirected coupling edge (k, s) ~
-    (k_src, s') satisfies W[s'+1, j, i, k_src] == roll(W[s+1, i, j, k],
-    (dy, dx)) up to assembly roundoff.  The symmetric matvec reads only the 12 forward-edge
+    :meth:`symmetrized` swaps it for the half-storage partner of its family
+    (``kernels/sym_plane_spmv.half_storage``: ``sym_plane_spmv`` or its
+    plain version, the reference's ``_matvec_sym``): the SWIPDG operator is
+    symmetric, so each undirected coupling edge (k, s) ~ (k_src, s')
+    satisfies W[s'+1, j, i, k_src] == roll(W[s+1, i, j, k], (dy, dx)) up to
+    assembly roundoff.  The symmetric matvec reads only the 12 forward-edge
     plane sets and the upper triangle of the self blocks of the same
     ``planes`` and applies each stored plane twice (forward, and transposed
     at the inverse shift).  The result is the exactly symmetrized operator
     (:func:`symmetric_planes` materializes it); it differs from the
     assembled one within assembly roundoff."""
 
-    def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv,
-                 sym: bool = False):
+    def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv):
         self.planes = planes
         self.plan = tuple(tuple(tuple(int(v) for v in e) for e in row)
                           for row in plan)
         self.spmv = spmv
-        self.sym = bool(sym)
 
     @classmethod
     def from_block_ell(cls, A: BlockEllMatrix, order) -> "StencilBlockEll":
@@ -144,6 +143,11 @@ class StencilBlockEll:
         return cls(A_st.planes.reshape(4, nd, nd, 8, KY, KX), stencil_plan(order))
 
     @property
+    def sym(self) -> bool:
+        """Whether :meth:`matvec` applies the half-storage symmetric form."""
+        return any(self.spmv is half for _, half in spmv_pairs())
+
+    @property
     def nd(self) -> int:
         return self.planes.shape[1]
 
@@ -156,14 +160,14 @@ class StencilBlockEll:
         return 8 * self.planes.shape[-2] * self.planes.shape[-1]
 
     def with_planes(self, planes: torch.Tensor) -> "StencilBlockEll":
-        return StencilBlockEll(planes, self.plan, self.spmv, self.sym)
+        return StencilBlockEll(planes, self.plan, self.spmv)
 
     def astype(self, dtype: torch.dtype) -> "StencilBlockEll":
         return self.with_planes(self.planes.to(dtype))
 
     def symmetrized(self) -> "StencilBlockEll":
         """Same planes, half-storage symmetric matvec (see class docstring)."""
-        return StencilBlockEll(self.planes, self.plan, self.spmv, sym=True)
+        return StencilBlockEll(self.planes, self.plan, half_storage(self.spmv))
 
     def neighbor_fields(self, X: torch.Tensor):
         """[4][nd, 8, KY, KX] neighbour fields (self + 3 slots) of X."""
@@ -179,8 +183,7 @@ class StencilBlockEll:
     def matvec(self, X: torch.Tensor) -> torch.Tensor:
         """X [nd, 8, KY, KX] -> A X in the same layout (the half-storage
         symmetric operator when ``sym``)."""
-        spmv = sym_plane_spmv if self.sym else self.spmv
-        return spmv(self.planes, X.contiguous(), self.plan)
+        return self.spmv(self.planes, X.contiguous(), self.plan)
 
     def diagonal_blocks(self) -> torch.Tensor:
         """[nd, nd, 8, KY, KX]."""
@@ -1008,54 +1011,23 @@ def _ratio(num: torch.Tensor, den: torch.Tensor, dtype: torch.dtype) -> torch.Te
                        torch.zeros_like(den)).to(dtype)
 
 
-def _eager_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable, rtol: float, maxiter: int,
-               unroll: int, adt: torch.dtype, vdt: torch.dtype, dt: torch.dtype):
-    """The PCG loop op by op (`stencil_pcg` on the CPU, and for an M that
-    cannot be captured): A and M applied in ``adt``, the Krylov vectors in
-    ``vdt``, the dots in ``dt``; each application of M in a
-    ``precond.apply`` span, of A in a ``matvec`` span."""
+class _Pcg:
+    """The PCG in the plane layout for one (A, M) pair: a loop over fixed
+    buffers X, R, P and rz with two bodies, ``_init`` (X = 0, Z = M(R),
+    P = Z, rz = (R, Z)) and ``_step`` (one iteration, updated in place:
+    X += alpha P, R -= alpha AP, P = beta P + Z).  A and M are applied in
+    ``adt``, the Krylov vectors kept in ``vdt``, the dots taken in ``dt``.
+    The caller loads each rhs into R.
 
-    def precond(V):
-        with span("precond.apply"):
-            return _applied(M, V, adt, vdt)
+    On CUDA tensors both bodies are captured as CUDA graphs at the first
+    ``pcg`` and replayed by every later one.  On the CPU, and where M asks
+    for a host synchronization during the capture (``SyncInCapture``), the
+    same bodies run directly on the same buffers.
 
-    B = B.to(vdt)
-    X = torch.zeros_like(B)
-    Z = precond(B)
-    P = Z
-    rz = _vdot(B, Z, dt)
-    R = B
-    stop2 = torch.tensor(rtol * rtol, dtype=dt).item()  # rounded like the dots (host)
-    k = 0
-    while k < maxiter and host_read(_vdot(R, R, dt)) > stop2:
-        for _ in range(max(1, int(unroll))):
-            with span("matvec"):
-                AP = _applied(A.matvec, P, adt, vdt)
-            alpha = _ratio(rz, _vdot(P, AP, dt), vdt)
-            X = X + alpha * P
-            R = R - alpha * AP
-            Z = precond(R)
-            rz_new = _vdot(R, Z, dt)
-            beta = _ratio(rz_new, rz, vdt)
-            P = Z + beta * P
-            rz = rz_new
-            k += 1
-    return X, k
-
-
-class _PcgGraphs:
-    """The PCG of one (A, M) pair on CUDA tensors as two CUDA graphs over
-    fixed buffers X, R, P and rz: ``init`` (X = 0, Z = M(R), P = Z,
-    rz = (R, Z)) and ``step`` (one iteration).  ``step`` issues the eager
-    loop's operations in its order and updates in place with the same
-    roundings (X += alpha P, R -= alpha AP, P = beta P + Z), so the
-    iterates are bitwise the eager loop's.  Both are captured at the first
-    ``pcg`` and replayed by every later one; the caller loads each rhs into
-    R.  Where M asks for a host synchronization (``SyncInCapture``), the
-    pair runs the eager loop instead.
-
-    Counters: ``pcg.graph.captures`` (one per graph), ``pcg.graph.replays``
-    (init and step), ``pcg.graph.eager_fallbacks``; the capture runs in a
+    Outside a capture each application of M runs in a ``precond.apply``
+    span and of A in a ``matvec`` span; a replay opens none.  Counters:
+    ``pcg.graph.captures`` (one per graph), ``pcg.graph.replays`` (init and
+    step), ``pcg.graph.eager_fallbacks``; the capture runs in a
     ``pcg.graph.capture`` span, and the counts made while capturing (the
     kernels' launches) count again at each replay."""
 
@@ -1066,22 +1038,29 @@ class _PcgGraphs:
         self.R = torch.empty_like(self.X)
         self.P = torch.empty_like(self.X)
         self.rz = torch.empty((), dtype=dt, device=device)
-        self.graphs = None   # [(graph, its counts)] of init and step, once captured
-        self.eager = False   # M could not be captured
+        self.bodies = None  # (init, step) once chosen: the bodies or their graphs' replays
+
+    def _apply(self, name: str, op: Callable, V: torch.Tensor) -> torch.Tensor:
+        """``op`` applied to V in ``adt``, the result in ``vdt``; in a span
+        ``name`` outside a capture."""
+        if capturing():
+            return _applied(op, V, self.adt, self.vdt)
+        with span(name):
+            return _applied(op, V, self.adt, self.vdt)
 
     def _init(self):
         self.X.zero_()
-        Z = _applied(self.M, self.R, self.adt, self.vdt)
+        Z = self._apply("precond.apply", self.M, self.R)
         self.P.copy_(Z)
         self.rz.copy_(_vdot(self.R, Z, self.dt))
 
     def _step(self):
-        X, R, P, rz, adt, vdt, dt = self.X, self.R, self.P, self.rz, self.adt, self.vdt, self.dt
-        AP = _applied(self.A.matvec, P, adt, vdt)
+        X, R, P, rz, vdt, dt = self.X, self.R, self.P, self.rz, self.vdt, self.dt
+        AP = self._apply("matvec", self.A.matvec, P)
         alpha = _ratio(rz, _vdot(P, AP, dt), vdt)
         X.add_(alpha * P)
         R.sub_(alpha * AP)
-        Z = _applied(self.M, R, adt, vdt)
+        Z = self._apply("precond.apply", self.M, R)
         rz_new = _vdot(R, Z, dt)
         beta = _ratio(rz_new, rz, vdt)
         P.mul_(beta).add_(Z)
@@ -1089,14 +1068,15 @@ class _PcgGraphs:
 
     def _capture(self):
         """Captures init and step into one private memory pool on a side
-        stream.  The cuBLAS workspaces are dropped before and after, so the
-        one the capture takes lives in that pool, is freed with the graphs,
-        and no workspace is held from outside it."""
+        stream and returns their replays, or the bodies themselves where M
+        cannot be captured.  The cuBLAS workspaces are dropped before and
+        after, so the one the capture takes lives in that pool, is freed
+        with the graphs, and no workspace is held from outside it."""
         current = torch.cuda.current_stream(self.X.device)
         stream = torch.cuda.Stream(self.X.device)
         stream.wait_stream(current)
         pool = torch.cuda.graph_pool_handle()
-        graphs = []
+        replays = []
         with span("pcg.graph.capture"):
             torch._C._cuda_clearCublasWorkspaces()
             try:
@@ -1109,47 +1089,47 @@ class _PcgGraphs:
                                 body()
                             finally:
                                 graph.capture_end()
-                        graphs.append((graph, counts))
+                        replays.append(_replay(graph, counts))
                         count("pcg.graph.captures")
             except SyncInCapture:
-                self.eager = True
                 count("pcg.graph.eager_fallbacks")
+                return self._init, self._step
             finally:
                 torch._C._cuda_clearCublasWorkspaces()
                 current.wait_stream(stream)
-        if not self.eager:
-            self.graphs = graphs
+        return tuple(replays)
 
-    def _replay(self, index: int):
-        graph, counts = self.graphs[index]
+    def pcg(self, rtol: float, maxiter: int, unroll: int, B: Optional[torch.Tensor] = None):
+        """`stencil_pcg` on the rhs in R (``B`` loaded into it first where
+        given); returns (X, iterations), X the buffer that the next call
+        overwrites."""
+        with span("pcg", device=True):
+            if B is not None:
+                self.R.copy_(B)
+            if self.bodies is None:
+                self.bodies = self._capture() if self.X.is_cuda else (self._init, self._step)
+            init, step = self.bodies
+            stop2 = torch.tensor(rtol * rtol, dtype=self.dt).item()  # rounded like the dots (host)
+            init()
+            k = 0
+            while k < maxiter and host_read(_vdot(self.R, self.R, self.dt)) > stop2:
+                for _ in range(max(1, int(unroll))):
+                    step()
+                    k += 1
+            count("pcg.iterations", k)
+        return self.X, k
+
+
+def _replay(graph, counts: dict) -> Callable:
+    """Replays ``graph`` and counts it, with the counts made while capturing it."""
+
+    def replay():
         graph.replay()
         count("pcg.graph.replays")
         for name, n in counts.items():
             count(name, n)
 
-    def pcg(self, rtol: float, maxiter: int, unroll: int, B: Optional[torch.Tensor] = None):
-        """`stencil_pcg` on the rhs in R (``B`` loaded into it first where
-        given); returns (X, iterations), X the buffer that the next call
-        overwrites (a new tensor where M runs eagerly)."""
-        with span("pcg", device=True):
-            if B is not None:
-                self.R.copy_(B)
-            if self.graphs is None and not self.eager:
-                self._capture()
-            if self.eager:
-                X, k = _eager_pcg(self.A, self.R, self.M, rtol, maxiter, unroll,
-                                  self.adt, self.vdt, self.dt)
-            else:
-                # the eager loop's host loop: init, then blocks of unroll steps
-                stop2 = torch.tensor(rtol * rtol, dtype=self.dt).item()
-                self._replay(0)
-                X, k = self.X, 0
-                while k < maxiter and host_read(_vdot(self.R, self.R, self.dt)) > stop2:
-                    for _ in range(max(1, int(unroll))):
-                        self._replay(1)
-                        k += 1
-            count("pcg.iterations", k)
-        return X, k
+    return replay
 
 
 def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
@@ -1164,19 +1144,14 @@ def stencil_pcg(A: StencilBlockEll, B: torch.Tensor, M: Callable,
 
     Convergence is checked (one host sync) before every block of ``unroll``
     iterations, so the count is a multiple of ``unroll`` and may pass
-    ``maxiter`` by less than ``unroll``.  On CUDA tensors the iteration is
-    captured once as a CUDA graph and replayed (`_PcgGraphs`), to the same
-    iterates; on the CPU it runs op by op.  Runs in a ``pcg`` span (op by
-    op, each application of M in a ``precond.apply`` span and of A in a
-    ``matvec`` span); counts its iterations in ``pcg.iterations``."""
+    ``maxiter`` by less than ``unroll``.  One `_Pcg` loop runs it: replayed
+    as CUDA graphs on CUDA tensors, op by op on the CPU, to the same
+    iterates.  Runs in a ``pcg`` span (op by op, each application of M in a
+    ``precond.apply`` span and of A in a ``matvec`` span); counts its
+    iterations in ``pcg.iterations``."""
     adt = B.dtype
-    vdt, dt = vec_dtype or adt, dot_dtype or adt
-    if B.is_cuda:
-        return _PcgGraphs(A, M, B.shape, adt, vdt, dt, B.device).pcg(rtol, maxiter, unroll, B)
-    with span("pcg", device=True):
-        X, k = _eager_pcg(A, B, M, rtol, maxiter, unroll, adt, vdt, dt)
-        count("pcg.iterations", k)
-    return X, k
+    return _Pcg(A, M, B.shape, adt, vec_dtype or adt, dot_dtype or adt,
+                B.device).pcg(rtol, maxiter, unroll, B)
 
 
 def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
@@ -1189,9 +1164,9 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     sweeps).  Each sweep solves for the correction of the exact float64
     residual, which is recomputed with the float64 SpMV (of the symmetric
     operator when A is symmetric), in a ``refine.residual`` span.
-    ``dot_dtype``/``vec_dtype`` go to :func:`stencil_pcg`.  On CUDA every
-    sweep replays the graphs of one `_PcgGraphs`, captured in the first
-    sweep, with its scaled residual loaded into their R."""
+    ``dot_dtype``/``vec_dtype`` are :func:`stencil_pcg`'s.  Every sweep runs
+    the one `_Pcg` loop of the solve with its scaled residual loaded into the
+    loop's R: on CUDA the graphs captured in the first sweep are replayed."""
     A64 = A.astype(torch.float64)
     B64 = B.to(torch.float64)
     bnorm = host_read(torch.linalg.norm(B64))
@@ -1201,17 +1176,11 @@ def stencil_refined_solve(A: StencilBlockEll, B: torch.Tensor, M: Callable,
     rnorm = bnorm
     sweeps = iters = 0
     f32 = torch.float32
-    graphs = (_PcgGraphs(A, M, B.shape, f32, vec_dtype or f32, dot_dtype or f32, B.device)
-              if B.is_cuda else None)
+    loop = _Pcg(A, M, B.shape, f32, vec_dtype or f32, dot_dtype or f32, B.device)
     while rnorm > target and sweeps < outer_max:
         scale = rnorm
-        if graphs is None:
-            dX, ki = stencil_pcg(A, (R64 / scale).to(f32), M,
-                                 rtol=inner_rtol, maxiter=inner_iters, unroll=unroll,
-                                 dot_dtype=dot_dtype, vec_dtype=vec_dtype)
-        else:
-            graphs.R.copy_((R64 / scale).to(f32))
-            dX, ki = graphs.pcg(inner_rtol, inner_iters, unroll)
+        loop.R.copy_((R64 / scale).to(f32))
+        dX, ki = loop.pcg(inner_rtol, inner_iters, unroll)
         X = X + dX.to(torch.float64) * scale
         with span("refine.residual", device=True):
             with span("matvec"):

@@ -22,7 +22,8 @@ default:
   ``upload(a, device)`` a copy to the device, each counted in
   ``host.syncs``; each raises ``SyncInCapture`` while the current CUDA
   stream captures a graph, which cannot hold a wait for the device.
-  ``count_launch`` counts a kernel launch.
+  ``count_launch`` counts a kernel launch; ``capturing()`` says whether
+  the current CUDA stream captures a graph.
 * ``captured_counts()``: the counts made while a CUDA graph is captured,
   kept apart from the record; the graph's work runs at each replay, whose
   caller counts them again.
@@ -49,7 +50,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 __all__ = ["Record", "Span", "recording", "span", "count", "host_read", "upload",
-           "count_launch", "SyncInCapture", "captured_counts",
+           "count_launch", "SyncInCapture", "captured_counts", "capturing",
            "trace", "annotate", "timings", "reset_timings", "profile_report",
            "SpanBreakdown", "span_breakdown", "SPAN_PREFIX"]
 
@@ -243,8 +244,13 @@ class SyncInCapture(RuntimeError):
     captures a graph (``host_read``, ``upload``): the capture cannot hold it."""
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream captures a graph (False without a card)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def _refuse_in_capture(what: str) -> None:
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    if capturing():
         raise SyncInCapture(f"{what} waits for the device, which a CUDA graph capture "
                             "cannot hold")
 

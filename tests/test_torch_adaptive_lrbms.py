@@ -12,7 +12,7 @@ at level 0 (384 DoF) with 3 oversampling layers, mu = mu_bar = 0.3:
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from dune_hdd_tpu import mor as jmor  # noqa: E402
@@ -23,19 +23,12 @@ from dune_hdd_tpu_torch.discretizations.block_swipdg import (  # noqa: E402
     BlockSWIPDGDiscretization as TB,
 )
 from dune_hdd_tpu_torch.testcases.os2014 import OS2014MultiscaleTestCase as TTC  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 PARAMS = {"mu": 0.3, "mu_bar": 0.3, "mu_hat": 0.1, "mu_minimizing": 0.1}
 LAYERS = 3
 MARKINGS = {"worst": dict(marking="worst"),
             "doerfler": dict(marking=("doerfler", 0.85), marking_estimator_type="eta_DF_OS2014")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _case(tc_cls, block_cls, layers, **kw):

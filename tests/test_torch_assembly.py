@@ -38,20 +38,13 @@ from dune_hdd_tpu_torch.ops import assembly as ta  # noqa: E402
 from dune_hdd_tpu_torch.ops import norms as tn  # noqa: E402
 from dune_hdd_tpu_torch.ops import spaces as tsp  # noqa: E402
 from dune_hdd_tpu_torch.ops import swipdg as tsw  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REL = 1e-12
 DIFFUSION = "1 + 0.5*sin(2*x[0])*cos(3*x[1])"
 DIRICHLET = "0.25*x[0]*x[1]"
 PATTERN_FIELDS = ("perm", "seg_ids", "slot_rows", "slot_cols", "ell_cols", "ell_mask",
                   "slot_ell_pos", "diag_slot")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -16,21 +16,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dune_hdd_tpu_torch.bench_harness import stencil2_roofline  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 ROOFLINE_KEYS = {"num_dofs", "copy_gbps", "matvec_ms", "matvec_gbps", "assembly_ms",
                  "assembly_gbps"}
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "num_dofs", "seconds", "residual",
               "platform", "provenance", "roofline"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread: the suite runs one worker process per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_roofline_keys_and_byte_models():

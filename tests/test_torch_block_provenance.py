@@ -24,14 +24,7 @@ from dune_hdd_tpu.testcases._spe10_channel import CHANNEL  # noqa: E402
 from dune_hdd_tpu_torch import bench_harness as tbench  # noqa: E402
 from dune_hdd_tpu_torch.functions.spe10 import _synthetic_model1_field  # noqa: E402
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _close(a, b, rel):

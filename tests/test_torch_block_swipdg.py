@@ -37,19 +37,12 @@ from dune_hdd_tpu_torch.grid.multiscale import Subgrid, extract_subgrid  # noqa:
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: E402
 from dune_hdd_tpu_torch.problems import ESV2007Problem as TESV  # noqa: E402
 from dune_hdd_tpu_torch.problems import ParametricESV2007Problem as TOS  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 PARTS = [(2, 2), (4, 1)]
 CASES = [("esv2007", None), ("os2014", "reference"), ("os2014", "penalty_mu")]
 BLOCKS = ("in_in", "in_out", "out_in", "out_out")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _grids():

@@ -33,19 +33,12 @@ from dune_hdd_tpu_torch.functions import base as tf  # noqa: E402
 from dune_hdd_tpu_torch.functions import esv2007 as tesv  # noqa: E402
 from dune_hdd_tpu_torch.grid import structured as tg  # noqa: E402
 from dune_hdd_tpu_torch.ops.norms import error_norms, induced_norm  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ALL_DIRICHLET = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MIXED = {"type": "stuff.grid.boundaryinfo.normalbased", "default": "dirichlet",
          "neumann": [[-1.0, 0.0], [1.0, 0.0]]}
 MU = np.array([0.1, 1.0, 0.5, 0.3])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mixed_boundaries(fn, pkg):

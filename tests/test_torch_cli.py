@@ -33,19 +33,12 @@ from dune_hdd_tpu_torch.cli import examples as tex  # noqa: E402
 from dune_hdd_tpu_torch.cli.main import fvca7_poster_study, main  # noqa: E402
 from dune_hdd_tpu_torch.studies.expectations import expected_results  # noqa: E402
 from dune_hdd_tpu_torch.utils.config import Configuration, parse_value  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 EXAMPLES = {"cg": "LinearellipticExampleCG", "swipdg": "LinearellipticExampleSWIPDG",
             "block-swipdg": "LinearellipticExampleBlockSWIPDG",
             "thermalblock": "ThermalblockExample"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cli(*argv):

@@ -25,6 +25,8 @@ import sys
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -29,6 +29,7 @@ from dune_hdd_tpu_torch.kernels.ell_spmv import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.la.sparse import SparseMatrix, build_pattern  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 DTYPES = [torch.float32, torch.float64]
 H100_SMS = 132

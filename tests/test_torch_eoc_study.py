@@ -6,7 +6,7 @@ raise StudyCheckError, as in the reference's own study test."""
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from dune_hdd_tpu.discretizations import SWIPDGDiscretization as JD  # noqa: E402
@@ -22,16 +22,9 @@ from dune_hdd_tpu_torch.studies import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.testcases.base import make_cube_hierarchy  # noqa: E402
 from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 OPTIONS = {"type": "cg.jacobi", "precision": 1e-12, "max_iter": 20000}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: 
 from dune_hdd_tpu_torch.ops.assembly import cell_quadrature  # noqa: E402
 from dune_hdd_tpu_torch.ops.norms import error_norms  # noqa: E402
 from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase as TTC  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TYPES = ["eta_NC_ESV2007", "eta_R_ESV2007", "eta_R_ESV2007_*", "eta_DF_ESV2007", "eta_DF_star",
          "eta_ESV2007", "eta_ESV2007_alt"]
@@ -49,14 +50,6 @@ EXPECTED = {  # the published table, levels 0-1
     "eta_ESV2007_alt": [5.93e-01, 2.73e-01],
 }
 EFFICIENCY = [1.37, 1.28]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _BUILT = {}

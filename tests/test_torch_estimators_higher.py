@@ -32,18 +32,11 @@ from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization as TD  # noq
 from dune_hdd_tpu_torch.functions.base import freeze_function as t_freeze  # noqa: E402
 from dune_hdd_tpu_torch.ops.assembly import cell_quadrature  # noqa: E402
 from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase as TTC  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TYPES = ["eta_NC_ESV2007", "eta_R_ESV2007", "eta_R_ESV2007_*", "eta_DF_ESV2007", "eta_DF_star",
          "eta_ESV2007", "eta_ESV2007_alt"]
 REL = 1e-10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _BUILT = {}

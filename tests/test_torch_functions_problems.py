@@ -20,18 +20,11 @@ from dune_hdd_tpu import problems as jp  # noqa: E402
 from dune_hdd_tpu_torch.functions import base as tb  # noqa: E402
 from dune_hdd_tpu_torch.functions import esv2007 as te  # noqa: E402
 from dune_hdd_tpu_torch import problems as tp  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-13
 BOXES = [((0.0, 0.0), (0.5, 0.5), 2.0), ((0.25, 0.5), (1.0, 0.75), -1.5),
          ((0.5, 0.0), (1.0, 0.5), 0.25)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _points(d=2, shape=(7, 5), lo=-0.1, hi=1.1, seed=0):

@@ -26,6 +26,7 @@ from dune_hdd_tpu_torch.la.stencil_assembly import (  # noqa: E402
     build_structured_assembly,
     geometric_soa_maps,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 

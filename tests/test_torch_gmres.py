@@ -24,17 +24,10 @@ from dune_hdd_tpu_torch.discretizations import CGDiscretization as TCG  # noqa: 
 from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization as TD  # noqa: E402
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: E402
 from dune_hdd_tpu_torch.la.solvers import gmres, solver_options  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 DIRICHLET = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MU = np.array([0.1, 1.0, 0.5, 0.3])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(a, b, rel):

@@ -14,6 +14,7 @@ from dune_hdd_tpu.grid import structured as js  # noqa: E402
 from dune_hdd_tpu_torch.grid import boundaryinfo as tbi  # noqa: E402
 from dune_hdd_tpu_torch.grid import hierarchy as th  # noqa: E402
 from dune_hdd_tpu_torch.grid import structured as ts  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 GRID_FIELDS = ("vertices", "cells", "faces", "cell_faces", "face_cells", "face_local")
 GEOMETRY = ("cell_volumes", "cell_diameters", "face_volumes", "face_normals",

@@ -32,6 +32,7 @@ from dune_hdd_tpu_torch.parallel import (  # noqa: E402
 from dune_hdd_tpu_torch.parallel.halo import _halo_cg, halo_parameter_sweep  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MU = [0.1, 1.0, 0.5, 2.0]
@@ -45,14 +46,6 @@ def _mu(v):
 
 def _jmu(v):
     return {"diffusion_factor": jnp.asarray(v)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

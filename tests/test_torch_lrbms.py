@@ -33,17 +33,10 @@ from dune_hdd_tpu_torch.discretizations.block_swipdg import (  # noqa: E402
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: E402
 from dune_hdd_tpu_torch.mor.pymor_shim import StationaryMultiscaleModelShim  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MU = (0.3, 1.0, 0.7, 0.2)  # the contract's parameter
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

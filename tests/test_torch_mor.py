@@ -44,17 +44,10 @@ from dune_hdd_tpu_torch.mor import batch as tbatch  # noqa: E402
 from dune_hdd_tpu_torch.mor import io as tio  # noqa: E402
 from dune_hdd_tpu_torch.mor.reductor import project  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MODES = [False, "algebraic", "riesz"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

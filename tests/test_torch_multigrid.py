@@ -34,6 +34,7 @@ from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as pt_grid  # noqa:
 from dune_hdd_tpu_torch.la import block_ell as tbe  # noqa: E402
 from dune_hdd_tpu_torch.la import multigrid as pt  # noqa: E402
 from dune_hdd_tpu_torch.ops.spaces import dg_space as pt_dg_space  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _grids(make, levels):

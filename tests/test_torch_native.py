@@ -13,6 +13,7 @@ from dune_hdd_tpu_torch.grid.structured import Grid, alu_cube_grid, rectangle_gr
 from dune_hdd_tpu_torch.native import build_connectivity, dedup_pattern, native_available  # noqa: E402
 
 from chip_smoke import same_connectivity  # noqa: E402  (the check chip_smoke.py runs at 12.29M)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

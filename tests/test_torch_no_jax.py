@@ -5,6 +5,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent

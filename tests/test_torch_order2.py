@@ -41,17 +41,10 @@ from dune_hdd_tpu_torch.la import stencil as ts  # noqa: E402
 from dune_hdd_tpu_torch.ops.spaces import Space as TSpace  # noqa: E402
 from dune_hdd_tpu_torch.problems import ESV2007Problem as TP  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 DIRICHLET = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 LOWER, UPPER = (-1.0, -1.0), (1.0, 1.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(a, b, rel=1e-12, atol=None):

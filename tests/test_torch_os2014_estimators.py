@@ -48,6 +48,7 @@ from dune_hdd_tpu_torch.testcases import os2014 as tos  # noqa: E402
 from dune_hdd_tpu_torch.testcases import thermalblock as ttb  # noqa: E402
 from dune_hdd_tpu_torch.testcases.os2014 import OS2014MultiscaleTestCase  # noqa: E402
 from dune_hdd_tpu_torch.utils import vtk as tvtk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 TYPES = TE.available()
@@ -64,14 +65,6 @@ PARAMETRIC = {
     (1.0, 1.0, 1.0): {"eta_DF_OS2014": (0.354808, 0.355), "eta_DF_OS2014_*": (0.354808, 0.355),
                       "eta_OS2014": (0.773342, 0.774), "eta_OS2014_*": (0.773342, 0.774)},
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _BUILT = {}

@@ -28,6 +28,7 @@ from dune_hdd_tpu_torch.parallel import (  # noqa: E402
     sharded_parameter_sweep,
 )
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MUS = ([1.0, 1.0, 1.0, 1.0], [0.1, 1.0, 0.5, 2.0], [2.0, 0.3, 1.0, 0.7], [0.5, 0.5, 0.5, 0.5])
@@ -36,14 +37,6 @@ CPU8 = ["cpu"] * 8
 
 def _mu(v):
     return {"diffusion_factor": np.asarray(v)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

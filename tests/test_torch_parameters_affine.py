@@ -17,6 +17,7 @@ from dune_hdd_tpu_torch import affine as pt_affine  # noqa: E402
 from dune_hdd_tpu_torch import parameters as pt_par  # noqa: E402
 from dune_hdd_tpu_torch.convert import pattern_from_numpy  # noqa: E402
 from dune_hdd_tpu_torch.la import sparse as pt_sparse  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-14
 TYPE = {"diffusion_factor": 4, "mu": 1, "nu": 3}
@@ -29,14 +30,6 @@ EXPRESSIONS = [
     "pow(mu, 2) / (1 + nu[0]*nu[0]) - cos(diffusion_factor[3])",
     "min(mu[0], nu[1]) + max(diffusion_factor[0], nu[2]) + tan(0.1*mu)",
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mu(seed):

@@ -30,19 +30,12 @@ from dune_hdd_tpu_torch.parallel.pipeline import (  # noqa: E402
 from dune_hdd_tpu_torch.parallel.sharded import Mesh  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 MUS = ([1.0, 1.0, 1.0, 1.0], [0.1, 1.0, 0.5, 2.0],
        [2.0, 0.3, 1.0, 0.7], [0.5, 0.5, 0.5, 0.5], [1.5, 0.2, 0.8, 1.1])
 CPU = ["cpu"] * 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

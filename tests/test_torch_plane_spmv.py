@@ -35,22 +35,19 @@ from dune_hdd_tpu_torch.kernels.plane_spmv import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.la.stencil_assembly import build_structured_assembly  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BISECTIONS = 2
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _reference_defaults():
-    """The reference's defaults (no BENCH_* knobs) for the module's fixtures
-    too, and one torch thread: the suite runs one worker process per core,
-    and torch's intra-op pool on top of that oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """The reference's defaults (no BENCH_* knobs), for the module's fixtures
+    too."""
     with pytest.MonkeyPatch.context() as mp:
         for key in [k for k in os.environ if k.startswith("BENCH_")]:
             mp.delenv(key)
         yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

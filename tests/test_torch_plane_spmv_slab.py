@@ -29,6 +29,7 @@ from dune_hdd_tpu_torch.kernels.plane_spmv import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.la.stencil import stencil_plan  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from dune_hdd_tpu_torch.kernels.probe import probe, probe_reference  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _inputs(shape, seed):

@@ -44,6 +44,7 @@ from dune_hdd_tpu_torch.ops.spaces import Space as TSpace  # noqa: E402
 from dune_hdd_tpu_torch.problems import ESV2007Problem as TP  # noqa: E402
 from dune_hdd_tpu_torch.problems.interfaces import Problem as TProblem  # noqa: E402
 from dune_hdd_tpu_torch.testcases.esv2007 import ESV2007TestCase as TTC  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 DIRICHLET = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 NORMAL = {"type": "stuff.grid.boundaryinfo.normalbased", "default": "dirichlet",
@@ -52,14 +53,6 @@ IDS = {"type": "stuff.grid.boundaryinfo.idbased", "default": "dirichlet", "neuma
 GRID_ARRAYS = ("vertices", "cells", "faces", "cell_faces", "face_cells", "face_local",
                "face_normals", "face_volumes", "cell_volumes", "cell_diameters",
                "cell_centroids", "boundary_vertices")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(a, b, rel=1e-12, atol=None):

@@ -24,17 +24,10 @@ from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: 
 from dune_hdd_tpu_torch.parallel import make_device_mesh  # noqa: E402
 from dune_hdd_tpu_torch.parallel.sharded_assembly import sharded_operator_values  # noqa: E402
 from dune_hdd_tpu_torch.problems import ThermalblockProblem as TTB  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 CPU8 = ["cpu"] * 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from dune_hdd_tpu_torch.discretizations import BlockSWIPDGDiscretization as TB  
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: E402
 from dune_hdd_tpu_torch.la.sparse import SparseMatrix, build_pattern  # noqa: E402
 from dune_hdd_tpu_torch.problems import ParametricESV2007Problem as TOS  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BI = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
 BLOCKS = ("in_in", "in_out", "out_in", "out_out")

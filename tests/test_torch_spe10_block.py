@@ -41,20 +41,13 @@ from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: 
 from dune_hdd_tpu_torch.ops.assembly import cell_quadrature  # noqa: E402
 from dune_hdd_tpu_torch.problems import Spe10Model1Problem as TP  # noqa: E402
 from dune_hdd_tpu_torch.testcases import spe10 as ttc  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "perm_case1_fixture.dat"
 ENTRIES = ("diffusion_factor", "diffusion_tensor", "force", "dirichlet", "neumann")
 MUS = {"mu": 0.1, "mu_bar": 0.1, "mu_hat": 0.1, "mu_minimizing": 0.1}
 # mu_hat != mu: the plain eta_OS2014 and the star variant differ
 MUS_HAT = {"mu": 0.1, "mu_bar": 0.1, "mu_hat": 1.0, "mu_minimizing": 0.1}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(a, b, rel):

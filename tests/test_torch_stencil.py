@@ -10,9 +10,10 @@ reference in its bench scope: x64 off, highest matmul precision):
 * PCG: iteration counts within max(4, 10%), X within 1e-4 x max.
 
 On the card (``cuda``; the file imports JAX only in the fixture ``ref``, so
-it runs there without it): the PCG replayed as CUDA graphs against the
-eager loop, bitwise, with its launch counts, one capture per refined solve,
-and the eager fallback for a preconditioner that syncs.
+it runs there without it): the PCG loop replayed as CUDA graphs against the
+same loop run op by op (reached through an M that syncs, which cannot be
+captured), bitwise, with its launch counts, one capture per refined solve,
+and the fallback's counts and spans.
 """
 import contextlib
 import os
@@ -27,6 +28,7 @@ from dune_hdd_tpu_torch.bench_harness import build_spe10_bench  # noqa: E402
 from dune_hdd_tpu_torch.convert import stencil_from_numpy  # noqa: E402
 from dune_hdd_tpu_torch.la import stencil as pt  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import host_read, recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BISECTIONS = 2
 MACROS = [(100, 20), (50, 10)]  # fx = 1 (dense LU) and fx = 2 (BCR) at 2 bisections
@@ -34,16 +36,12 @@ MACROS = [(100, 20), (50, 10)]  # fx = 1 (dense LU) and fx = 2 (BCR) at 2 bisect
 
 @pytest.fixture(autouse=True, scope="module")
 def _reference_defaults():
-    """The reference's defaults (no BENCH_* knobs) for the module's fixtures
-    too, and one torch thread: the suite runs one worker process per core,
-    and torch's intra-op pool on top of that oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """The reference's defaults (no BENCH_* knobs), for the module's fixtures
+    too."""
     with pytest.MonkeyPatch.context() as mp:
         for key in [k for k in os.environ if k.startswith("BENCH_")]:
             mp.delenv(key)
         yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -228,15 +226,28 @@ def card_systems():
                            torch.float64, 4)}
 
 
-def _eager(A, B, M, dtype, unroll, rtol=1e-5):
-    return pt._eager_pcg(A, B, M, rtol, 2000, unroll, dtype, dtype, dtype)
+def _syncing(M):
+    """M with a read of a device value first: it adds a host sync and
+    nothing else, and a CUDA graph capture cannot hold it."""
+
+    def apply(R):
+        host_read(R.reshape(-1)[0])
+        return M(R)
+
+    return apply
+
+
+def _uncaptured(A, B, M, unroll, rtol=1e-5):
+    """The PCG loop run op by op on the card: an M that syncs cannot be
+    captured, so the loop runs its bodies directly on its buffers."""
+    return pt.stencil_pcg(A, B, _syncing(M), rtol=rtol, maxiter=2000, unroll=unroll)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["deflation_f32", "jacobi_f64"])
 def test_graphed_pcg_bitwise_equals_eager_on_card(card_systems, case):
     A, B, M, dtype, unroll = card_systems[case]
-    X_e, k_e = _eager(A, B, M, dtype, unroll)
+    X_e, k_e = _uncaptured(A, B, M, unroll)
     with recording() as rec:
         X_g, k_g = pt.stencil_pcg(A, B, M, rtol=1e-5, maxiter=2000, unroll=unroll)
     assert k_g == k_e > 0 and k_g % unroll == 0
@@ -249,10 +260,10 @@ def test_graphed_pcg_bitwise_equals_eager_on_card(card_systems, case):
 @pytest.mark.parametrize("case", ["deflation_f32", "jacobi_f64"])
 def test_graphed_pcg_counts_the_eager_launches_on_card(card_systems, case):
     """The launches counted while capturing count again at each replay, so
-    the kernels' counters read as the eager loop's."""
+    the kernels' counters read as the loop's run op by op."""
     A, B, M, dtype, unroll = card_systems[case]
     with recording() as eager:
-        _, k_e = _eager(A, B, M, dtype, unroll)
+        _, k_e = _uncaptured(A, B, M, unroll)
     with recording() as graphed:
         _, k_g = pt.stencil_pcg(A, B, M, rtol=1e-5, maxiter=2000, unroll=unroll)
     kernel = "sym_plane_spmv" if A.sym else "plane_spmv"
@@ -276,18 +287,14 @@ def test_refined_solve_captures_once_on_card(card_systems):
 
 @pytest.mark.cuda
 def test_pcg_falls_back_for_a_preconditioner_that_syncs_on_card(card_systems):
-    """An M that reads a device value cannot be captured: the PCG runs it
-    op by op, to the eager loop's iterates, and counts the case."""
+    """An M that reads a device value cannot be captured: the loop runs its
+    bodies op by op, to the replayed loop's iterates, and counts the case."""
     A, B, M, dtype, unroll = card_systems["jacobi_f64"]
-
-    def syncing(R):
-        host_read(R.reshape(-1)[0])
-        return M(R)
-
-    X_e, k_e = _eager(A, B, syncing, dtype, unroll)
+    X_g, k_g = pt.stencil_pcg(A, B, M, rtol=1e-5, maxiter=2000, unroll=unroll)
     with recording() as rec:
-        X_f, k_f = pt.stencil_pcg(A, B, syncing, rtol=1e-5, maxiter=2000, unroll=unroll)
-    assert k_f == k_e and torch.equal(X_f, X_e)
+        X_f, k_f = _uncaptured(A, B, M, unroll)
+    assert k_f == k_g and torch.equal(X_f, X_g)
     assert rec.total("pcg.graph.eager_fallbacks") == 1
     assert rec.total("pcg.graph.captures") == 0 and rec.total("pcg.graph.replays") == 0
     assert len(rec.seconds("precond.apply")) == k_f + 1
+    assert len(rec.seconds("matvec")) == k_f

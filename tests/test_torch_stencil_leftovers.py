@@ -37,15 +37,7 @@ from dune_hdd_tpu_torch.bench_harness import _bench_geometry, build_spe10_bench 
 from dune_hdd_tpu_torch.convert import block_ell_from_numpy, stencil_from_numpy  # noqa: E402
 from dune_hdd_tpu_torch.la import stencil as pt  # noqa: E402
 from dune_hdd_tpu_torch.la.block_ell import StructuredBlockEll  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread: the suite runs one worker process per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @contextlib.contextmanager

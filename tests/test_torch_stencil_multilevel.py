@@ -33,9 +33,13 @@ import jax.numpy as jnp  # noqa: E402
 from dune_hdd_tpu.la import stencil as jx  # noqa: E402
 from dune_hdd_tpu_torch.bench_harness import build_spe10_bench  # noqa: E402
 from dune_hdd_tpu_torch.convert import stencil_from_numpy  # noqa: E402
-from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference  # noqa: E402
-from dune_hdd_tpu_torch.kernels.sym_plane_spmv import sym_plane_spmv_reference  # noqa: E402
+from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference  # noqa: E402
+from dune_hdd_tpu_torch.kernels.sym_plane_spmv import (  # noqa: E402
+    sym_plane_spmv,
+    sym_plane_spmv_reference,
+)
 from dune_hdd_tpu_torch.la import stencil as pt  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BISECTIONS = 4
 MACRO = (25, 5)    # the exact level, aggregation factor 8 from the fine lattice
@@ -45,16 +49,12 @@ CHAIN = [(100, 20), (50, 10)]
 
 @pytest.fixture(autouse=True, scope="module")
 def _reference_defaults():
-    """The reference's defaults (no BENCH_* knobs) for the module's fixtures
-    too, and one torch thread: the suite runs one worker process per core,
-    and torch's intra-op pool on top of that oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """The reference's defaults (no BENCH_* knobs), for the module's fixtures
+    too."""
     with pytest.MonkeyPatch.context() as mp:
         for key in [k for k in os.environ if k.startswith("BENCH_")]:
             mp.delenv(key)
         yield
-    torch.set_num_threads(threads)
 
 
 @contextlib.contextmanager
@@ -98,6 +98,7 @@ def test_symmetrized_matvec_matches(system, dtype, rel):
     with _jx_f32() if dtype == np.float32 else contextlib.nullcontext():
         y_j = np.asarray(S_j.symmetrized().matvec(jnp.asarray(X)))
     Ssym = S_t.symmetrized()
+    assert Ssym.spmv is sym_plane_spmv and S_t.spmv is plane_spmv
     assert Ssym.sym and not S_t.sym and Ssym.planes is S_t.planes
     _close(Ssym.matvec(torch.as_tensor(X)).numpy(), y_j, rel)
     # within assembly roundoff of the assembled operator
@@ -107,7 +108,7 @@ def test_symmetrized_matvec_matches(system, dtype, rel):
 def test_symmetrized_astype_keeps_sym_and_is_symmetric(system):
     S_t, _ = _both(system)
     S64 = S_t.symmetrized().astype(torch.float64)
-    assert S64.sym and S64.planes.dtype == torch.float64
+    assert S64.spmv is sym_plane_spmv and S64.sym and S64.planes.dtype == torch.float64
     np.testing.assert_array_equal(S64.planes.numpy(), S_t.planes.double().numpy())
     # the half-storage operator is the materialized symmetric planes' one
     np.testing.assert_array_equal(pt.symmetric_planes(S64).numpy(),

@@ -25,6 +25,7 @@ from dune_hdd_tpu_torch.la.stencil import StencilBlockEll as TStencil  # noqa: E
 from dune_hdd_tpu_torch.la.stencil_sharded import ShardedStencilSystem as TSharded  # noqa: E402
 from dune_hdd_tpu_torch.parallel.sharded import Mesh as TMesh  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 MACRO = (100, 20)
 

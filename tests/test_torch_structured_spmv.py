@@ -30,16 +30,7 @@ from dune_hdd_tpu_torch.kernels.structured_spmv import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.la.block_ell import StructuredBlockEll  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread: the suite runs one worker process per core, and
-    torch's intra-op pool on top of that oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

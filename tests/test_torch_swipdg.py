@@ -35,6 +35,7 @@ from dune_hdd_tpu_torch.grid.structured import alu_cube_grid as t_grid  # noqa: 
 from dune_hdd_tpu_torch.grid.structured import rectangle_grid as t_rect  # noqa: E402
 from dune_hdd_tpu_torch.la.solvers import solve as t_solve  # noqa: E402
 from dune_hdd_tpu_torch.parameters import parse_parameter  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ALL_PRODUCTS = ("l2", "h1_semi", "elliptic", "boundary_l2", "penalty", "energy")
 DIRICHLET = {"type": "stuff.grid.boundaryinfo.alldirichlet"}
@@ -45,14 +46,6 @@ CASES = {
     "thermalblock_b2": ((0, 0), (1, 1), 2, "thermalblock"),
     "thermalblock_b4": ((0, 0), (1, 1), 4, "thermalblock"),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _BUILT = {}

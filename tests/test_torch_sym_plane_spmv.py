@@ -8,8 +8,9 @@ within 1e-6 x max|y| in float32 and 1e-13 x max|y| in float64 (both add in
 one order; XLA may contract a multiply and an add into one rounding); it is
 the materialized symmetric planes' full SpMV summed in another order; the
 schedule covers every (subclass, slot) once in the reference's order;
-``symmetrized()`` keeps the one plane array, and ``with_planes``,
-``astype`` and ``scale_planes`` keep ``sym``; ``stencil_refined_solve``
+``symmetrized()`` keeps the one plane array and swaps the SpMV for the
+half-storage one of its family (the plain version for the plain version),
+and ``with_planes``, ``astype`` and ``scale_planes`` keep it; ``stencil_refined_solve``
 with the symmetric operator reaches a true 1e-6 like the JAX package's at 2
 and 4 bisections, its float64 residual the half-storage operator's.  The
 ``cuda`` test holds the kernel bitwise to its plain version at every nd and
@@ -26,7 +27,7 @@ torch = pytest.importorskip("torch")
 
 from dune_hdd_tpu_torch.grid.structured import alu_cube_grid  # noqa: E402
 from dune_hdd_tpu_torch.grid.structured_order import structured_cell_order  # noqa: E402
-from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv_reference  # noqa: E402
+from dune_hdd_tpu_torch.kernels.plane_spmv import plane_spmv, plane_spmv_reference  # noqa: E402
 from dune_hdd_tpu_torch.kernels.sym_plane_spmv import (  # noqa: E402
     sym_forward_edges,
     sym_geometry,
@@ -37,22 +38,19 @@ from dune_hdd_tpu_torch.kernels.sym_plane_spmv import (  # noqa: E402
 )
 from dune_hdd_tpu_torch.la.stencil import stencil_plan, symmetric_planes  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import recording  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BISECTIONS = 2
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _reference_defaults():
-    """One torch thread: the suite runs one worker process per core, and
-    torch's intra-op pool on top of that oversubscribes the cores; no
-    BENCH_* knobs for the reference."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """The reference's defaults (no BENCH_* knobs), for the module's fixtures
+    too."""
     with pytest.MonkeyPatch.context() as mp:
         for key in [k for k in os.environ if k.startswith("BENCH_")]:
             mp.delenv(key)
         yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +176,7 @@ def test_cpu_routes_to_plain_version_uncounted(plan_lattice):
 def test_symmetrized_keeps_one_plane_array(bench_system):
     S, B, _ = bench_system
     Ssym = S.symmetrized()
+    assert Ssym.spmv is sym_plane_spmv and S.spmv is plane_spmv
     assert Ssym.sym and not S.sym and Ssym.planes is S.planes
     tensors = [v for v in vars(Ssym).values() if isinstance(v, torch.Tensor)]
     assert len(tensors) == 1 and tensors[0] is S.planes
@@ -190,14 +189,45 @@ def test_with_planes_astype_and_scale_planes_keep_sym(bench_system):
 
     S, B, _ = bench_system
     Ssym = S.symmetrized()
-    assert Ssym.with_planes(S.planes * 2).sym
+    assert Ssym.with_planes(S.planes * 2).spmv is sym_plane_spmv
     S64 = Ssym.astype(torch.float64)
-    assert S64.sym and S64.planes.dtype == torch.float64 and S64.plan == S.plan
+    assert S64.spmv is sym_plane_spmv and S64.sym
+    assert S64.planes.dtype == torch.float64 and S64.plan == S.plan
     assert torch.equal(S64.planes, S.planes.double())
-    assert S64.spmv is Ssym.spmv
     scaled, _, _ = scale_planes(Ssym, B)
-    assert scaled.sym
-    assert not S.astype(torch.float64).sym
+    assert scaled.spmv is sym_plane_spmv
+    assert S.astype(torch.float64).spmv is plane_spmv and not S.astype(torch.float64).sym
+
+
+def test_symmetrized_plain_version_stays_plain(plan_lattice, monkeypatch):
+    """An operator on the plain SpMV, symmetrized, applies the plain
+    half-storage SpMV and never the kernel's wrapper, also after
+    ``with_planes`` and ``astype``: a substituted plain version reaches the
+    half-storage path (the bench's from 8 bisections)."""
+    from dune_hdd_tpu_torch.kernels import sym_plane_spmv as sym
+    from dune_hdd_tpu_torch.la.stencil import StencilBlockEll
+
+    plan, (KY, KX) = plan_lattice
+    calls = {"kernel": 0, "plain": 0}
+
+    def spy(name, f):
+        def counted(*args):
+            calls[name] += 1
+            return f(*args)
+
+        return counted
+
+    plain = spy("plain", sym.sym_plane_spmv_reference)
+    monkeypatch.setattr(sym, "sym_plane_spmv", spy("kernel", sym.sym_plane_spmv))
+    monkeypatch.setattr(sym, "sym_plane_spmv_reference", plain)
+    W = torch.as_tensor(_random((4, 3, 3, 8, KY, KX), 10, np.float32))
+    X = torch.as_tensor(_random((3, 8, KY, KX), 11, np.float32))
+    S = StencilBlockEll(W, plan, spmv=plane_spmv_reference).symmetrized()
+    for op in (S, S.with_planes(2 * W), S.astype(torch.float64)):
+        assert op.spmv is plain and op.sym
+        x = X.to(op.planes.dtype)
+        assert torch.equal(op.matvec(x), sym_plane_spmv_reference(op.planes, x, plan))
+    assert calls == {"kernel": 0, "plain": 3}
 
 
 @pytest.mark.parametrize("bisections,u_bar", [(2, 1e-4), (4, 5e-4)])

@@ -44,18 +44,11 @@ from dune_hdd_tpu_torch.grid import tensor as tg  # noqa: E402
 from dune_hdd_tpu_torch.ops import tensor_space as ts  # noqa: E402
 from dune_hdd_tpu_torch.studies import EocStudy, eoc_rates  # noqa: E402
 from dune_hdd_tpu_torch.testcases.tensor import TensorSineTestcase as TSine  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CG_OPTS = {"type": "cg.jacobi", "precision": 1e-12, "max_iter": 20000}
 RTOL = 1e-13
 SOLVE_RTOL = 1e-10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(a, b, rel=RTOL, atol=None):

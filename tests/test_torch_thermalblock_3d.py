@@ -38,17 +38,10 @@ from dune_hdd_tpu_torch.mor.batch import (  # noqa: E402
 from dune_hdd_tpu_torch.mor.greedy import _extend  # noqa: E402
 from dune_hdd_tpu_torch.parameters import ParameterType  # noqa: E402
 from dune_hdd_tpu_torch.problems.thermalblock import ThermalblockProblem  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CG_OPTS = {"type": "cg.jacobi", "precision": 1e-12, "max_iter": 20000}
 MU = np.array([0.1, 1.0, 0.5, 2.0, 1.0, 0.3, 4.0, 1.0])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(a):

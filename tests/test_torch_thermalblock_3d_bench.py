@@ -20,6 +20,7 @@ from hddbench import run as harness  # noqa: E402
 from hddbench.lib.check import probe_vector, rel, scaled_residual  # noqa: E402
 from hddbench.reference.thermalblock_q1_3d import (CORNERS, Reference,  # noqa: E402
                                                    element_matrix)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CELL = "thermalblock_3d_q1.snapshots"

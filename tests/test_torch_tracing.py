@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from dune_hdd_tpu_torch.utils import profiling  # noqa: E402
 from dune_hdd_tpu_torch.utils.profiling import (  # noqa: E402
     count, recording, span, span_breakdown)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def test_span_tree_and_solve_ids():

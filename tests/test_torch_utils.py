@@ -25,6 +25,7 @@ from dune_hdd_tpu_torch.utils.logging import (  # noqa: E402
     TimedLogger, create_logger, reset_timings, timed, timings)
 from dune_hdd_tpu_torch.utils.profiling import (  # noqa: E402
     annotate, profile_report, recording, trace)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def test_timed_records_phases(capsys):
