@@ -99,14 +99,17 @@ rechecked in float64 to 1e-8, mu = 1 against constant diffusion, the
 true-error greedy); the scalar-ELL SpMV kernel against its plain version,
 timed against its bound and the CSR library call, on that operator and on
 the 1.57M-DoF SWIPDG thermalblock operator in f32 and f64, and its launches
-in one 3D solve; the same at 24^3
+in one 3D solve; the block-Jacobi apply bitwise against its plain version
+and timed at the two cells' shapes and at nd 6 and 10, and its launches in
+one 1.57M-DoF snapshot solve; the 3D thermalblock at 24^3
 with the Riesz-estimator greedy, its certification and the batched online
 sweep; the 2D TensorCG batched-online cases.  Then the plane SpMV's launches per
 instantiation and lattice with each one's share, a JSON line of the kernels
 (one row per plane_spmv instantiation, nd in {3, 6, 10} x {f32, f64}, one
 for its (256, 256) f64 lattice, one per structured_spmv nd, the nd-3 row's
 launches the deflation branch's, sym_plane_spmv at nd 3 in f32 and f64
-at 12.29M DoF, and ell_spmv on the 3D operator with its solve's launches),
+at 12.29M DoF, ell_spmv on the 3D operator with its solve's launches, and
+block_jacobi at (256, 256) f64 with the snapshot solve's),
 the card's name and power limit, and last
 {"ok": true, ...}.
 
@@ -119,6 +122,12 @@ the BSR call).
     python3 chip_smoke.py --ell-spmv
 
 builds the scalar-ELL SpMV and runs its phase only (about two minutes).
+
+    python3 chip_smoke.py --block-jacobi
+
+builds the block-Jacobi apply and runs its phase only: bitwise against its
+plain version and timed at the two cells' shapes and at nd 6 and 10, and
+its launches in one 1.57M-DoF snapshot solve (about a minute).
 
     python3 chip_smoke.py --alt-solvers
 
@@ -168,6 +177,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        "dune_hdd_tpu/la/stencil.py:227"),
     # not a Pallas kernel: the reference's XLA gather, product and row sum
     "ell_spmv": ("dune_hdd_tpu_torch/csrc/ell_spmv.cu", "dune_hdd_tpu/la/sparse.py:164"),
+    # not a Pallas kernel: the reference's XLA block-Jacobi apply
+    "block_jacobi": ("dune_hdd_tpu_torch/csrc/block_jacobi.cu",
+                     "dune_hdd_tpu/la/stencil.py:277"),
 }
 _T0 = time.perf_counter()
 _LAST = [_T0]
@@ -284,10 +296,12 @@ def ptxas_summary(compiler_log):
     return out
 
 
-def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv", "ell_spmv")):
+def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv", "ell_spmv",
+                       "block_jacobi")):
     """One nvcc per source, all started together; prints each kernel
     function's registers, static shared memory, stack and spills, and fails
-    on a spill or a stack frame of either plane SpMV."""
+    on a spill or a stack frame of the plane SpMVs, the ELL SpMV or the
+    block-Jacobi apply."""
     from dune_hdd_tpu_torch.kernels import build
 
     with ThreadPoolExecutor(len(names)) as pool:
@@ -297,7 +311,7 @@ def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv
             nvcc_seconds=f"{seconds:.2f}")
         for fn, info in ptxas_summary(compiler_log).items():
             log("ptxas", kernel=name, function=fn, **info)
-            if name in ("plane_spmv", "sym_plane_spmv", "ell_spmv") and (
+            if name in ("plane_spmv", "sym_plane_spmv", "ell_spmv", "block_jacobi") and (
                     info["stack"] or info["spill_stores"] or info["spill_loads"]):
                 raise AssertionError(f"{name} {fn}: stack frame or spills {info}")
     if "plane_spmv" in names:
@@ -3027,6 +3041,87 @@ def phase_ell_spmv(dev, swipdg_bisections=14):
     return rows
 
 
+def check_block_jacobi(dev, nd, lattice, dtype, seed):
+    """The block-Jacobi kernel bitwise against its plain version on random
+    inverse blocks at ``lattice``, then kernel, plain version and the one
+    einsum that computes the same timed against the bytes bound.  Returns
+    the timing fields of the kernels line."""
+    from dune_hdd_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_reference
+    from dune_hdd_tpu_torch.la.block_ell import inv3x3
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (8,) + tuple(lattice) + (nd, nd)
+    D = (torch.randn(shape, generator=gen, dtype=torch.float64)
+         + 2 * nd * torch.eye(nd, dtype=torch.float64)).to(dev, dtype)
+    Dinv = torch.movedim(inv3x3(D) if nd == 3 else torch.linalg.inv(D), (-2, -1),
+                         (0, 1)).contiguous()
+    R = torch.randn((nd, 8) + tuple(lattice), generator=gen, dtype=torch.float64).to(dev, dtype)
+    del D
+    Z = block_jacobi(Dinv, R)
+    torch.cuda.synchronize()
+    if not torch.equal(Z, block_jacobi_reference(Dinv, R)):
+        raise AssertionError(f"block_jacobi nd {nd} {tuple(lattice)} {dtype}: not bitwise "
+                             "its plain version")
+    sites = R[0].numel()
+    D2, R2 = Dinv.view(nd, nd, sites), R.view(nd, sites)
+    name = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    row = timed("block_jacobi", f"nd{nd}_{name} {lattice[0]}x{lattice[1]}",
+                lambda: block_jacobi(Dinv, R), lambda: block_jacobi_reference(Dinv, R),
+                lambda: torch.einsum("ijc,jc->ic", D2, R2),
+                (nd * nd + 2 * nd) * sites * R.element_size(), (2 * nd * nd - nd) * sites,
+                dtype, sites=sites, bitwise_equal=True)
+    del Dinv, R, Z
+    return row
+
+
+def phase_block_jacobi(dev, bisections=14):
+    """The block-Jacobi apply on the card: bitwise against its plain
+    version and timed at the two cells' shapes (nd 3: (256, 256) float64,
+    the snapshot solve's; (160, 800) float32, the b8 deflation apply's) and
+    at nd 6 and 10; then one snapshot solve of the 2x2 thermalblock SWIPDG
+    at ``bisections`` (Jacobi stencil_cg 1e-8), which must launch the kernel
+    once for the initial residual and once an iteration.  Returns {row
+    name: (timing fields, 0.0)}; the snapshot row's fields hold the solve's
+    launches."""
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.grid.structured import alu_cube_grid
+    from dune_hdd_tpu_torch.problems import ThermalblockProblem
+
+    rows = {}
+    for nd, lattice, dtype in [(3, (256, 256), torch.float64), (3, (160, 800), torch.float32),
+                               (6, (128, 128), torch.float64), (10, (64, 64), torch.float64),
+                               (6, (128, 128), torch.float32), (10, (64, 64), torch.float32)]:
+        name = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        key = f"block_jacobi_nd{nd}_{name}_{lattice[0]}x{lattice[1]}"
+        rows[key] = (check_block_jacobi(dev, nd, lattice, dtype, 41 + nd), 0.0)
+    torch.cuda.empty_cache()
+
+    grid = alu_cube_grid((0, 0), (1, 1), (4, 4), refinements=bisections)
+    d = SWIPDGDiscretization(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"},
+                             ThermalblockProblem((2, 2)), only_these_products=(), device=dev)
+    mu = np.random.default_rng(19).uniform(0.1, 1.0, 4)
+    opts = {"type": "stencil_cg", "precision": 1e-8, "max_iter": 50000}
+    d.uncached_solve(mu, opts)  # capture and build once
+    with recording() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.uncached_solve(mu, opts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    iters, launches = d.last_solve_info["iterations"], rec.total("kernel.block_jacobi")
+    log("block_jacobi_solve", case=f"thermalblock 2x2 stencil_cg f64, {d.space.num_dofs} DoF",
+        iterations=iters, launches=launches, seconds=f"{seconds:.3f}",
+        ms_per_iteration=f"{seconds / iters * 1e3:.4f}", card=repr(card()))
+    if launches != iters + 1:
+        raise AssertionError(f"snapshot solve: {launches} block_jacobi launches for {iters} "
+                             "iterations")
+    key = "block_jacobi_nd3_f64_256x256"
+    rows[key] = (dict(rows[key][0], launches=launches), 0.0)
+    del d
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_thermalblock_3d_riesz(dev):
     """The same problem at 24^3 cells (15,625 DoF: the host splu of the 3D
     h1_semi product fills in, 14.1M L+U nonzeros here and 57.7M at 32^3,
@@ -3276,6 +3371,7 @@ def main():
     phase_thermalblock_3d(dev)
     torch.cuda.empty_cache()
     ell_rows = phase_ell_spmv(dev)
+    block_jacobi_rows = phase_block_jacobi(dev)
     phase_thermalblock_3d_riesz(dev)
     phase_tensor_mor_batch(dev)
     phase_os2014_parametric(dev)
@@ -3317,7 +3413,8 @@ def main():
             "sym_plane_spmv_nd3_f64": (dict(sym_times["float64"],
                                             launches=SYM_PATH_LAUNCHES["nd3_f64"]), sym_err),
             **higher_rows, **slab_rows}
-    rows.update({name: r for name, r in ell_rows.items() if "launches" in r[0]})
+    rows.update({name: r for name, r in {**ell_rows, **block_jacobi_rows}.items()
+                 if "launches" in r[0]})
     for name, (row, _) in rows.items():
         if not row["launches"] > 0:
             raise AssertionError(f"{name}: no launch on its path")
@@ -3402,6 +3499,20 @@ def main_ell_spmv():
     print(card())
 
 
+def main_block_jacobi():
+    """``--block-jacobi``: build the block-Jacobi apply and run its phase
+    only (the shapes, the snapshot solve), then the kernels line."""
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(("block_jacobi",))
+    rows = phase_block_jacobi(dev)
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=KERNELS["block_jacobi"][0],
+        replaces=KERNELS["block_jacobi"][1], max_abs_err=err, **row)
+        for name, (row, err) in rows.items()]}))
+    print(card())
+
+
 def main_plane_rows():
     """``--plane-rows``: build plane_spmv and time it at PLANE_ROWS only
     (kernel against bound; ``--library`` adds the plain and BSR times)."""
@@ -3431,6 +3542,8 @@ if __name__ == "__main__":
         main_plane_rows()
     elif "--ell-spmv" in sys.argv:
         main_ell_spmv()
+    elif "--block-jacobi" in sys.argv:
+        main_block_jacobi()
     elif "--alt-solvers" in sys.argv:
         main_alt_solvers()
     elif "--sharded" in sys.argv:

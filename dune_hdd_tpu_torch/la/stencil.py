@@ -33,6 +33,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.block_jacobi import block_jacobi
 from ..kernels.plane_spmv import plane_spmv
 from ..kernels.sym_plane_spmv import half_storage, spmv_pairs, sym_forward_edges
 from ..utils.profiling import (SyncInCapture, captured_counts, capturing, count, host_read,
@@ -219,21 +220,13 @@ def symmetric_planes(S: StencilBlockEll) -> torch.Tensor:
 
 def jacobi_smoother(A: StencilBlockEll) -> Callable:
     """Blockwise inverse of the diagonal nd x nd blocks, SoA layout (the
-    closed-form 3x3 inverse for P1, ``torch.linalg.inv`` above)."""
+    closed-form 3x3 inverse for P1, ``torch.linalg.inv`` above), kept as one
+    contiguous [nd, nd, 8, KY, KX] array and applied by ``block_jacobi``."""
     D = torch.movedim(A.diagonal_blocks(), (0, 1), (-2, -1))  # [8, KY, KX, nd, nd]
-    nd = A.nd
-    Dinv = torch.movedim(inv3x3(D) if nd == 3 else _inv(D), (-2, -1), (0, 1))
+    Dinv = torch.movedim(inv3x3(D) if A.nd == 3 else _inv(D), (-2, -1), (0, 1)).contiguous()
 
     def apply(R: torch.Tensor) -> torch.Tensor:
-        # fused multiply-adds in j order: the rounding of the reference's
-        # XLA contraction
-        out = []
-        for i in range(nd):
-            t = Dinv[i, 0] * R[0]
-            for j in range(1, nd):
-                t = torch.addcmul(t, Dinv[i, j], R[j])
-            out.append(t)
-        return torch.stack(out)
+        return block_jacobi(Dinv, R.contiguous())
 
     return apply
 
