@@ -23,7 +23,11 @@ the refinement, and ``host.syncs`` at each point where the host waits for
 the device: a read of a device value, ``torch.linalg``'s check of its
 result, and a copy from host memory to the device.  The PCG is one loop,
 `_Pcg`, which on CUDA runs as CUDA graphs (``pcg.graph.capture`` and the
-``pcg.graph.*`` counters).
+``pcg.graph.*`` counters).  `stencil_deflation_preconditioner` builds in a
+``deflation.build`` span, counts the coarse branch it took
+(``deflation.coarse.<dense|factored_bcr|multilevel>``) and the coarse
+unknowns (``deflation.aggregates``) once per build, and each application
+of M in ``deflation.applies``.
 """
 from __future__ import annotations
 
@@ -907,78 +911,84 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
     solves' defect correction (float32: none).  The preconditioner is built
     from ``A.planes``, the assembled operator, also when A applies the
     symmetric form."""
-    # weighted pairing sums P_w[s,k] = sum_ij w_i W[s,i,j] w_j(neighbour)
-    wnbr = A.neighbor_fields(weight)  # [4][nd, 8, KY, KX]
-    Pw = torch.stack([(weight[:, None] * A.planes[s] * wnbr[s][None, :]).sum(dim=(0, 1))
-                      for s in range(4)])  # [4, 8, KY, KX]
-    if mid_shape is not None:
-        mids = ([tuple(mid_shape)] if isinstance(mid_shape[0], (int, np.integer))
-                else [tuple(m) for m in mid_shape])
-        agg = _aggregation2d(A, mids[0])
-    else:
-        agg = _aggregation(A, macro_shape)
-    if agg is None:
-        raise ValueError(f"aggregation lattice {tuple(mid_shape or macro_shape)} does not "
-                         f"tile the stencil lattice {A.lattice}")
-    smoother = smoother or jacobi_smoother(A)
-    if mid_shape is not None:
-        coarse = _multilevel_inverse(_stencil_bands(A, agg, Pw), agg.my, agg.mx,
-                                     mids[1:] + [tuple(macro_shape)],
-                                     newton_schulz=newton_schulz, cheb_degree=mid_cheb,
-                                     dtype=A.planes.dtype, residual_dtype=residual_dtype)
-    elif agg.fx >= 2 and agg.mx * agg.my > 4096:
-        Bb, Cb = _bands_to_blocktridiag(_coarse_bands(A, agg, Pw), agg.mx, agg.my)
-        coarse = _factored_bcr_solve_from_blocks(Bb, Cb, agg.mx, agg.my,
-                                                 residual_dtype=residual_dtype)
-    else:
-        coarse = _exact_inverse(_coarse_E_banded(A, agg, Pw), agg.mx, agg.my, agg.fx,
-                                newton_schulz, residual_dtype)
+    with span("deflation.build", device=True):
+        # weighted pairing sums P_w[s,k] = sum_ij w_i W[s,i,j] w_j(neighbour)
+        wnbr = A.neighbor_fields(weight)  # [4][nd, 8, KY, KX]
+        Pw = torch.stack([(weight[:, None] * A.planes[s] * wnbr[s][None, :]).sum(dim=(0, 1))
+                          for s in range(4)])  # [4, 8, KY, KX]
+        if mid_shape is not None:
+            mids = ([tuple(mid_shape)] if isinstance(mid_shape[0], (int, np.integer))
+                    else [tuple(m) for m in mid_shape])
+            agg = _aggregation2d(A, mids[0])
+        else:
+            agg = _aggregation(A, macro_shape)
+        if agg is None:
+            raise ValueError(f"aggregation lattice {tuple(mid_shape or macro_shape)} does not "
+                             f"tile the stencil lattice {A.lattice}")
+        smoother = smoother or jacobi_smoother(A)
+        count("deflation.aggregates", agg.mx * agg.my)
+        if mid_shape is not None:
+            count("deflation.coarse.multilevel")
+            coarse = _multilevel_inverse(_stencil_bands(A, agg, Pw), agg.my, agg.mx,
+                                         mids[1:] + [tuple(macro_shape)],
+                                         newton_schulz=newton_schulz, cheb_degree=mid_cheb,
+                                         dtype=A.planes.dtype, residual_dtype=residual_dtype)
+        elif agg.fx >= 2 and agg.mx * agg.my > 4096:
+            count("deflation.coarse.factored_bcr")
+            Bb, Cb = _bands_to_blocktridiag(_coarse_bands(A, agg, Pw), agg.mx, agg.my)
+            coarse = _factored_bcr_solve_from_blocks(Bb, Cb, agg.mx, agg.my,
+                                                     residual_dtype=residual_dtype)
+        else:
+            count("deflation.coarse.dense")
+            coarse = _exact_inverse(_coarse_E_banded(A, agg, Pw), agg.mx, agg.my, agg.fx,
+                                    newton_schulz, residual_dtype)
 
-    AZ = torch.stack([(A.planes[s] * wnbr[s][None, :]).sum(dim=1)
-                      for s in range(4)])  # [4, nd, 8, KY, KX]
-    plan = A.plan
+        AZ = torch.stack([(A.planes[s] * wnbr[s][None, :]).sum(dim=1)
+                          for s in range(4)])  # [4, nd, 8, KY, KX]
+        plan = A.plan
 
-    def wsum(R):
-        """Z_w^T R: weighted aggregate sums."""
-        return agg.aggsum(R * weight)
+        def wsum(R):
+            """Z_w^T R: weighted aggregate sums."""
+            return agg.aggsum(R * weight)
 
-    def wbcast(yc):
-        """Z_w yc in the full [nd, 8, KY, KX] layout."""
-        return agg.broadcast(yc)[None] * weight
+        def wbcast(yc):
+            """Z_w yc in the full [nd, 8, KY, KX] layout."""
+            return agg.broadcast(yc)[None] * weight
 
-    def a_broadcast(yc):
-        """A (Z_w yc) via AZ planes + rolled broadcast."""
-        B0 = agg.broadcast(yc)  # [8, KY, KX]
-        out = AZ[0] * B0[None]
-        for s in range(3):
-            Bs = torch.stack([torch.roll(B0[ks], shifts=(-dy, -dx), dims=(0, 1))
-                              for ks, dy, dx in (plan[k][s] for k in range(8))])
-            out = out + AZ[s + 1] * Bs[None]
-        return out
+        def a_broadcast(yc):
+            """A (Z_w yc) via AZ planes + rolled broadcast."""
+            B0 = agg.broadcast(yc)  # [8, KY, KX]
+            out = AZ[0] * B0[None]
+            for s in range(3):
+                Bs = torch.stack([torch.roll(B0[ks], shifts=(-dy, -dx), dims=(0, 1))
+                                  for ks, dy, dx in (plan[k][s] for k in range(8))])
+                out = out + AZ[s + 1] * Bs[None]
+            return out
 
-    def zt_a(Svec):
-        """Z_w^T A s via AZ planes: scatter each slot's pairing back to the
-        neighbour's lattice position with the inverse roll, then aggsum."""
-        total = (AZ[0] * Svec).sum(dim=0)  # [8, KY, KX]
-        for s in range(3):
-            Ps = (AZ[s + 1] * Svec).sum(dim=0)
-            out_k = [None] * 8
-            for k in range(8):
-                ks, dy, dx = plan[k][s]
-                contrib = torch.roll(Ps[k], shifts=(dy, dx), dims=(0, 1))
-                out_k[ks] = contrib if out_k[ks] is None else out_k[ks] + contrib
-            # every slot's k -> k_src map is a bijection for the NVB subclasses
-            if any(o is None for o in out_k):
-                raise ValueError("stencil plan slot map is not bijective")
-            total = total + torch.stack(out_k)
-        return agg.aggsum(total)
+        def zt_a(Svec):
+            """Z_w^T A s via AZ planes: scatter each slot's pairing back to the
+            neighbour's lattice position with the inverse roll, then aggsum."""
+            total = (AZ[0] * Svec).sum(dim=0)  # [8, KY, KX]
+            for s in range(3):
+                Ps = (AZ[s + 1] * Svec).sum(dim=0)
+                out_k = [None] * 8
+                for k in range(8):
+                    ks, dy, dx = plan[k][s]
+                    contrib = torch.roll(Ps[k], shifts=(dy, dx), dims=(0, 1))
+                    out_k[ks] = contrib if out_k[ks] is None else out_k[ks] + contrib
+                # every slot's k -> k_src map is a bijection for the NVB subclasses
+                if any(o is None for o in out_k):
+                    raise ValueError("stencil plan slot map is not bijective")
+                total = total + torch.stack(out_k)
+            return agg.aggsum(total)
 
-    def apply(R):
-        yc = coarse(wsum(R))
-        s = smoother(R - a_broadcast(yc))
-        return wbcast(yc) + s - wbcast(coarse(zt_a(s)))
+        def apply(R):
+            count("deflation.applies")
+            yc = coarse(wsum(R))
+            s = smoother(R - a_broadcast(yc))
+            return wbcast(yc) + s - wbcast(coarse(zt_a(s)))
 
-    return apply
+        return apply
 
 
 # -- mixed-precision refined PCG ---------------------------------------------

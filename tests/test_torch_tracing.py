@@ -201,12 +201,14 @@ def _spe10():
     per_pcg = [_checks(s.counts["pcg.iterations"], st.unroll, st.inner_iters)
                for s in rec.spans if s.name == "pcg"]
     # the two-level coarse solve: block cyclic reduction over the padded
-    # macro columns (one inverse per level, one solve at the last)
+    # macro columns (one inverse per level, one solve at the last), inside
+    # the deflation build's own span
     mx = 100
     build = (1 << (mx - 1).bit_length()).bit_length()
     expected = {"pcg": sum(per_pcg), "refine.residual": sol.sweeps, "solve": 1,
-                "precond.build": build}
-    tree = {("solve",), ("solve", "assemble"), ("solve", "precond.build"), ("solve", "pcg"),
+                "deflation.build": build}
+    tree = {("solve",), ("solve", "assemble"), ("solve", "precond.build"),
+            ("solve", "precond.build", "deflation.build"), ("solve", "pcg"),
             ("solve", "pcg", "matvec"), ("solve", "pcg", "precond.apply"),
             ("solve", "refine.residual"), ("solve", "refine.residual", "matvec")}
     return rec, sol.iterations, sol.sweeps, expected, tree
