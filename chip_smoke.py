@@ -129,6 +129,14 @@ builds the block-Jacobi apply and runs its phase only: bitwise against its
 plain version and timed at the two cells' shapes and at nd 6 and 10, and
 its launches in one 1.57M-DoF snapshot solve (about a minute).
 
+    python3 chip_smoke.py --deflation-apply
+
+builds the fine level of the deflation apply and runs its phase only: the
+four passes at the OS2014 and b8 shapes against their plain versions and
+timed as a graph against their bytes bound, the whole apply of both cells'
+preconditioners graphed with the kernels and with the plain passes, and
+OS2014 level-6 solves at mu = 0.1 and 1 on both (about three minutes).
+
     python3 chip_smoke.py --alt-solvers
 
 builds the two SpMVs and runs the main path at 768k DoF, the other branches
@@ -147,6 +155,7 @@ builds both plane SpMVs and runs the half-storage kernel's phases with the
 paths they follow (the 3.07M and 12.29M main paths, the roofline, the bench
 entry point, the 12.29M timing and sharded solve, the RB demo).
 """
+import contextlib
 import copy
 import json
 import math
@@ -180,6 +189,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # not a Pallas kernel: the reference's XLA block-Jacobi apply
     "block_jacobi": ("dune_hdd_tpu_torch/csrc/block_jacobi.cu",
                      "dune_hdd_tpu/la/stencil.py:277"),
+    # not a Pallas kernel: the reference's XLA deflation apply (its fine level)
+    "deflation_apply": ("dune_hdd_tpu_torch/csrc/deflation_apply.cu",
+                        "dune_hdd_tpu/la/stencil.py stencil_deflation_preconditioner"),
 }
 _T0 = time.perf_counter()
 _LAST = [_T0]
@@ -297,7 +309,7 @@ def ptxas_summary(compiler_log):
 
 
 def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv", "ell_spmv",
-                       "block_jacobi")):
+                       "block_jacobi", "deflation_apply")):
     """One nvcc per source, all started together; prints each kernel
     function's registers, static shared memory, stack and spills, and fails
     on a spill or a stack frame of the plane SpMVs, the ELL SpMV or the
@@ -311,7 +323,8 @@ def phase_build(names=("plane_spmv", "structured_spmv", "probe", "sym_plane_spmv
             nvcc_seconds=f"{seconds:.2f}")
         for fn, info in ptxas_summary(compiler_log).items():
             log("ptxas", kernel=name, function=fn, **info)
-            if name in ("plane_spmv", "sym_plane_spmv", "ell_spmv", "block_jacobi") and (
+            if name in ("plane_spmv", "sym_plane_spmv", "ell_spmv", "block_jacobi",
+                        "deflation_apply") and (
                     info["stack"] or info["spill_stores"] or info["spill_loads"]):
                 raise AssertionError(f"{name} {fn}: stack frame or spills {info}")
     if "plane_spmv" in names:
@@ -3122,6 +3135,257 @@ def phase_block_jacobi(dev, bisections=14):
     return rows
 
 
+# (label, nd, lattice, aggregation (mx, my), x-major coarse layout, dtype): the
+# deflation apply's fine level at the OS2014 cell's shape and at b8's
+DEFLATION_SHAPES = [("os2014", 3, (256, 256), (4, 4), True, torch.float64),
+                    ("b8", 3, (160, 800), (400, 80), False, torch.float32)]
+# the OS2014 studies' solver: two-level macro deflation, float64, to 1e-12
+OS2014_SOLVER = {"type": "stencil_cg", "macro": (4, 4), "precision": 1e-12, "max_iter": 20000}
+DEFLATION_PASSES = ("weighted_sums", "residual", "zt_a", "combine")
+
+
+def time_graphed(fn, reps=200):
+    """Device time of one call of ``fn`` (ms) as the solve runs it, captured
+    in a CUDA graph: the mean over ``reps`` replays between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ops(fn):
+    """The device ops (kernels, copies, fills) one call of ``fn`` runs, from
+    a profiler trace; None where the profiler sees no device."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+@contextlib.contextmanager
+def plain_deflation_apply():
+    """``la/stencil``'s apply on the plain versions of the fine level's
+    passes (the PyTorch closures it ran before the kernels) inside."""
+    from dune_hdd_tpu_torch.kernels import deflation_apply as dfa
+    from dune_hdd_tpu_torch.la import stencil as st
+
+    saved = {n: getattr(st, n) for n in DEFLATION_PASSES}
+    try:
+        for n in DEFLATION_PASSES:
+            setattr(st, n, getattr(dfa, f"{n}_reference"))
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(st, n, f)
+
+
+def check_deflation_fine_level(dev, label, nd, lattice, macro, x_major, dtype, seed):
+    """The four passes on a random fine level at ``lattice`` under the
+    grids' plan: the residual (with and without the Jacobi product) and the
+    combine bitwise against the plain versions, the two aggregate sums'
+    max |kernel - plain| / max |plain|, a second run bitwise the first; then
+    the four passes (the coarse solves left out) timed as a graph against
+    the bytes bound and the plain versions.  Returns the timing fields."""
+    from dune_hdd_tpu_torch.kernels import deflation_apply as dfa
+    from dune_hdd_tpu_torch.la import stencil as st
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    KY, KX = lattice
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64).to(dev, dtype)
+
+    D = rand(8, KY, KX, nd, nd) + 2 * nd * torch.eye(nd, dtype=dtype, device=dev)
+    Dinv = torch.movedim(torch.linalg.inv(D), (-2, -1), (0, 1)).contiguous()
+    del D
+    A = st.StencilBlockEll(torch.empty((4, nd, nd, 8, KY, KX), device="meta"), esv_plan())
+    agg = (st._aggregation if x_major else st._aggregation2d)(A, macro)
+    F = dfa.fine_level(rand(4, nd, 8, KY, KX), rand(nd, 8, KY, KX).abs() + 0.5, A.plan, agg,
+                       Dinv=Dinv)
+    R = rand(nd, 8, KY, KX)
+    y1, y2 = rand(*agg.shape), rand(*agg.shape)
+    S, T = dfa.residual(F, R, y1), dfa.residual(F._replace(Dinv=None), R, y1)
+    Z = dfa.combine(F, y1, S, y2)
+    rc, rc2 = dfa.weighted_sums(F, R), dfa.zt_a(F, S)
+    torch.cuda.synchronize()
+    bitwise = (torch.equal(S, dfa.residual_reference(F, R, y1))
+               and torch.equal(T, dfa.residual_reference(F._replace(Dinv=None), R, y1))
+               and torch.equal(Z, dfa.combine_reference(F, y1, S, y2)))
+    errs = [((got - ref).abs().max() / ref.abs().max()).item()
+            for got, ref in ((rc, dfa.weighted_sums_reference(F, R)),
+                             (rc2, dfa.zt_a_reference(F, S)))]
+    repeat = (torch.equal(rc, dfa.weighted_sums(F, R)) and torch.equal(rc2, dfa.zt_a(F, S))
+              and torch.equal(S, dfa.residual(F, R, y1)))
+    log("deflation_fine_level", case=label, dtype=str(dtype).replace("torch.", ""),
+        lattice=f"{KY}x{KX}", aggregates=agg.mx * agg.my, geometry=tuple(
+            dfa.sum_geometry(KX, agg.fy, agg.fx, agg.my)), bitwise_residual_combine=bitwise,
+        weighted_sums_rel=f"{errs[0]:.3e}", zt_a_rel=f"{errs[1]:.3e}", repeat_bitwise=repeat)
+    if not (bitwise and repeat and max(errs) <= {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]):
+        raise AssertionError(f"deflation fine level {label}: bitwise {bitwise}, repeat {repeat}, "
+                             f"aggregate sums {errs}")
+
+    def passes(ws, res, zta, comb):
+        def fn():
+            y = ws(F, R)  # the coarse solves left out: y1 = Z_w^T R, y2 = Z_w^T A S
+            s = res(F, R, y)
+            return comb(F, y, s, zta(F, s))
+        return fn
+
+    kernel_fn = passes(dfa.weighted_sums, dfa.residual, dfa.zt_a, dfa.combine)
+    plain_fn = passes(dfa.weighted_sums_reference, dfa.residual_reference, dfa.zt_a_reference,
+                      dfa.combine_reference)
+    sites, size = 8 * KY * KX, R.element_size()
+    # Z_w^T R: R, w; the residual: AZ, R, Dinv, S; Z_w^T A S: AZ, S; the combine: S, w, out
+    nbytes = (2 * nd + (4 * nd + 2 * nd + nd * nd) + 5 * nd + 3 * nd) * sites * size
+    flops = (2 * nd + (8 * nd + 2 * nd * nd) + 8 * nd + 4 * nd) * sites
+    ms, plain_ms = time_graphed(kernel_fn), time_graphed(plain_fn)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    log("timing", kernel="deflation_apply", case=f"{label} fine level, graphed",
+        kernel_us=f"{ms * 1e3:.2f}", kernel_gbps=f"{nbytes / ms / 1e6:.1f}",
+        plain_us=f"{plain_ms * 1e3:.2f}", bound_us=f"{bound_ms * 1e3:.2f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms:.3f}", bytes=nbytes, launches_per_apply=device_ops(
+            kernel_fn), plain_ops_per_apply=device_ops(plain_fn), card=repr(card()))
+    del F, R, S, T, Z, Dinv
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, max(errs)
+
+
+def time_deflation_apply(label, M, R):
+    """The whole apply of M (two coarse solves included), graphed, with the
+    kernels and with the plain passes; the device ops of one apply each."""
+    ms, ops = time_graphed(lambda: M(R)), device_ops(lambda: M(R))
+    with plain_deflation_apply():
+        plain_ms, plain_ops = time_graphed(lambda: M(R)), device_ops(lambda: M(R))
+    log("timing", kernel="deflation_apply", case=f"{label} whole apply, graphed",
+        kernel_us=f"{ms * 1e3:.2f}", plain_us=f"{plain_ms * 1e3:.2f}", ops_per_apply=ops,
+        plain_ops_per_apply=plain_ops, card=repr(card()))
+    return ms, plain_ms
+
+
+def check_pass_counts(label, rec, applies, launches=None):
+    """Each of the four fine-level passes counted once per application of
+    M in ``rec`` (``applies`` > 0, and ``launches`` where given), the
+    unfused residual never; returns the fused residual passes."""
+    counts = {n: rec.total(f"kernel.deflation_apply.{n}") for n in DEFLATION_PASSES}
+    if not (applies > 0 and set(counts.values()) == {applies} and (launches is None
+            or applies == launches) and rec.total("kernel.deflation_apply.defect") == 0):
+        raise AssertionError(f"{label}: {applies} applies (expected {launches}), passes "
+                             f"{counts}, defect {rec.total('kernel.deflation_apply.defect')}")
+    return counts["residual"]
+
+
+def phase_deflation_apply(dev, os2014_level=6, b8_bisections=8):
+    """The fine level of the deflation apply on the card: the passes at the
+    OS2014 and b8 shapes (``check_deflation_fine_level``); the whole apply
+    of the OS2014 test case's preconditioner at ``os2014_level`` (the global
+    SWIPDG discretization that the OS2014 block study and cell solve, with
+    the studies' solver) and of the b8 bench's at ``b8_bisections``,
+    graphed, with the kernels and with the plain passes; OS2014 solves at
+    mu = 0.1 and 1 with both, which must agree in iterations within 2%,
+    with no eager fallback, each pass of the kernels once per application
+    of M (the init's and one an iteration) and none on the plain passes.
+    Returns {row name: (timing fields, max relative error of the aggregate
+    sums)}; ``launches`` is the fused residual passes counted in the solve
+    at mu = 0.1 (OS2014) and in the b8 solve."""
+    from dune_hdd_tpu_torch.bench_harness import _bench_geometry, build_spe10_bench
+    from dune_hdd_tpu_torch.discretizations import SWIPDGDiscretization
+    from dune_hdd_tpu_torch.la.stencil import stencil_deflation_preconditioner
+    from dune_hdd_tpu_torch.parameters import parse_parameter
+    from dune_hdd_tpu_torch.testcases.os2014 import OS2014MultiscaleTestCase
+
+    rows = {}
+    for i, (label, nd, lattice, macro, x_major, dtype) in enumerate(DEFLATION_SHAPES):
+        name = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        rows[f"deflation_apply_nd{nd}_{name}_{lattice[0]}x{lattice[1]}"] = (
+            check_deflation_fine_level(dev, label, nd, lattice, macro, x_major, dtype, 61 + i))
+    torch.cuda.empty_cache()
+
+    tc = OS2014MultiscaleTestCase({"mu": 1.0, "mu_bar": 1.0, "mu_hat": 1.0,
+                                   "mu_minimizing": 0.1}, num_partitions=(8, 8),
+                                  num_refinements=os2014_level)
+    d = SWIPDGDiscretization(tc.level_grid(os2014_level), tc.boundary_info(), tc.problem,
+                             only_these_products=(), device=dev)
+    system = d.stencil_system(parse_parameter(np.array([0.3]), d.parameter_type))
+    w = (1.0 / system.s).to(system.B.dtype)[system.to_soa].reshape(system.B.shape)
+    M = stencil_deflation_preconditioner(system.S, OS2014_SOLVER["macro"], weight=w)
+    ms, plain_ms = time_deflation_apply("os2014", M, system.B.contiguous())
+    del M, system, w
+    solves, launches = {}, {}
+    for mu in (0.1, 1.0):
+        for path in ("kernels", "plain"):
+            with recording() as rec:
+                with plain_deflation_apply() if path == "plain" else contextlib.nullcontext():
+                    u = d.uncached_solve(parse_parameter(np.array([mu]), d.parameter_type),
+                                         OS2014_SOLVER)
+            torch.cuda.synchronize()
+            iterations = int(d.last_solve_info["iterations"])
+            ok = iterations < OS2014_SOLVER["max_iter"] and bool(torch.isfinite(u).all())
+            solves[(mu, path)] = iterations
+            applies = rec.total("deflation.applies")
+            label = f"OS2014 level {os2014_level} mu {mu} {path}"
+            if path == "kernels":
+                launches[mu] = check_pass_counts(label, rec, applies, iterations + 1)
+            elif rec.totals_under("kernel.deflation_apply.") != {}:
+                raise AssertionError(f"{label}: {rec.totals_under('kernel.deflation_apply.')}")
+            log("deflation_apply_solve", case=f"OS2014 level {os2014_level}", mu=mu, path=path,
+                iterations=iterations, ok=ok, applies=applies,
+                residual_passes=rec.total("kernel.deflation_apply.residual"),
+                eager_fallbacks=rec.total("pcg.graph.eager_fallbacks"))
+            if not (ok and rec.total("pcg.graph.eager_fallbacks") == 0):
+                raise AssertionError(f"{label}: ok {ok}, "
+                                     f"{rec.total('pcg.graph.eager_fallbacks')} eager fallbacks")
+        k, p = solves[(mu, "kernels")], solves[(mu, "plain")]
+        if abs(k - p) > 0.02 * p:
+            raise AssertionError(f"OS2014 mu {mu}: {k} iterations with the kernels, {p} plain")
+    key = "deflation_apply_nd3_f64_256x256"
+    if key in rows:
+        rows[key] = (dict(rows[key][0], launches=launches[0.1], apply_ms=ms,
+                          plain_apply_ms=plain_ms), rows[key][1])
+    del d, u
+    torch.cuda.empty_cache()
+
+    bench = build_spe10_bench(b8_bisections, device=dev)
+    S, B, s = bench.assemble(bench.field)
+    _, M = bench.precondition(S, s)
+    ms, plain_ms = time_deflation_apply("b8", M, B.contiguous())
+    with recording() as rec:
+        sol = bench.solve(S, B, s)
+    torch.cuda.synchronize()
+    applies = rec.total("deflation.applies")
+    log("deflation_apply_solve", case=f"b8 at {b8_bisections} bisections",
+        iterations=sol.iterations, sweeps=sol.sweeps, residual=f"{sol.residual:.3e}",
+        applies=applies, residual_passes=rec.total("kernel.deflation_apply.residual"))
+    fused = check_pass_counts(f"b8 at {b8_bisections} bisections", rec, applies)
+    if not sol.residual <= 1e-6:
+        raise AssertionError(f"b8 solve: residual {sol.residual:.3e}")
+    key = "deflation_apply_nd3_f32_160x800"
+    if key in rows:
+        rows[key] = (dict(rows[key][0], launches=fused, apply_ms=ms, plain_apply_ms=plain_ms),
+                     rows[key][1])
+    del bench, S, B, s, M
+    _bench_geometry.cache_clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_thermalblock_3d_riesz(dev):
     """The same problem at 24^3 cells (15,625 DoF: the host splu of the 3D
     h1_semi product fills in, 14.1M L+U nonzeros here and 57.7M at 32^3,
@@ -3372,6 +3636,7 @@ def main():
     torch.cuda.empty_cache()
     ell_rows = phase_ell_spmv(dev)
     block_jacobi_rows = phase_block_jacobi(dev)
+    deflation_rows = phase_deflation_apply(dev)
     phase_thermalblock_3d_riesz(dev)
     phase_tensor_mor_batch(dev)
     phase_os2014_parametric(dev)
@@ -3413,8 +3678,8 @@ def main():
             "sym_plane_spmv_nd3_f64": (dict(sym_times["float64"],
                                             launches=SYM_PATH_LAUNCHES["nd3_f64"]), sym_err),
             **higher_rows, **slab_rows}
-    rows.update({name: r for name, r in {**ell_rows, **block_jacobi_rows}.items()
-                 if "launches" in r[0]})
+    rows.update({name: r for name, r in {**ell_rows, **block_jacobi_rows,
+                                         **deflation_rows}.items() if "launches" in r[0]})
     for name, (row, _) in rows.items():
         if not row["launches"] > 0:
             raise AssertionError(f"{name}: no launch on its path")
@@ -3513,6 +3778,21 @@ def main_block_jacobi():
     print(card())
 
 
+def main_deflation_apply():
+    """``--deflation-apply``: build the fine level's kernels and the SpMVs
+    and run its phase only (the two shapes, the OS2014 and b8 applies, the
+    OS2014 solves), then the kernels line."""
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(("deflation_apply", "plane_spmv", "sym_plane_spmv", "block_jacobi"))
+    rows = phase_deflation_apply(dev)
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=KERNELS["deflation_apply"][0],
+        replaces=KERNELS["deflation_apply"][1], max_abs_err=err, **row)
+        for name, (row, err) in rows.items()]}))
+    print(card())
+
+
 def main_plane_rows():
     """``--plane-rows``: build plane_spmv and time it at PLANE_ROWS only
     (kernel against bound; ``--library`` adds the plain and BSR times)."""
@@ -3544,6 +3824,8 @@ if __name__ == "__main__":
         main_ell_spmv()
     elif "--block-jacobi" in sys.argv:
         main_block_jacobi()
+    elif "--deflation-apply" in sys.argv:
+        main_deflation_apply()
     elif "--alt-solvers" in sys.argv:
         main_alt_solvers()
     elif "--sharded" in sys.argv:

@@ -12,8 +12,10 @@ geometric slot-s neighbour is the subclass-``k_src`` cell at
 (domain boundary), so the per-axis wrap is harmless.
 
 The SpMVs are the hand-written kernels ``kernels/plane_spmv`` and, for the
-half-storage symmetric operator, ``kernels/sym_plane_spmv``; everything else
-is plain torch on the planes' device.
+half-storage symmetric operator, ``kernels/sym_plane_spmv``; the block-Jacobi
+apply is ``kernels/block_jacobi`` and the fine level of the deflation apply
+``kernels/deflation_apply``; everything else is plain torch on the planes'
+device.
 
 Spans and counters (``utils/profiling.py``; recorded only while recording):
 ``pcg`` around each ``stencil_pcg`` with its ``pcg.iterations``,
@@ -27,7 +29,8 @@ result, and a copy from host memory to the device.  The PCG is one loop,
 ``deflation.build`` span, counts the coarse branch it took
 (``deflation.coarse.<dense|factored_bcr|multilevel>``) and the coarse
 unknowns (``deflation.aggregates``) once per build, and each application
-of M in ``deflation.applies``.
+of M in ``deflation.applies`` (its fine level's passes count in
+``kernel.deflation_apply.*``).
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ import numpy as np
 import torch
 
 from ..kernels.block_jacobi import block_jacobi
+from ..kernels.deflation_apply import (FineLevel, combine, fine_level, residual,
+                                       weighted_sums, zt_a)
 from ..kernels.plane_spmv import plane_spmv
 from ..kernels.sym_plane_spmv import half_storage, spmv_pairs, sym_forward_edges
 from ..utils.profiling import (SyncInCapture, captured_counts, capturing, count, host_read,
@@ -222,12 +227,17 @@ def symmetric_planes(S: StencilBlockEll) -> torch.Tensor:
 # -- smoother ----------------------------------------------------------------
 
 
-def jacobi_smoother(A: StencilBlockEll) -> Callable:
+def _block_inverse(A: StencilBlockEll) -> torch.Tensor:
     """Blockwise inverse of the diagonal nd x nd blocks, SoA layout (the
-    closed-form 3x3 inverse for P1, ``torch.linalg.inv`` above), kept as one
-    contiguous [nd, nd, 8, KY, KX] array and applied by ``block_jacobi``."""
+    closed-form 3x3 inverse for P1, ``torch.linalg.inv`` above), as one
+    contiguous [nd, nd, 8, KY, KX] array."""
     D = torch.movedim(A.diagonal_blocks(), (0, 1), (-2, -1))  # [8, KY, KX, nd, nd]
-    Dinv = torch.movedim(inv3x3(D) if A.nd == 3 else _inv(D), (-2, -1), (0, 1)).contiguous()
+    return torch.movedim(inv3x3(D) if A.nd == 3 else _inv(D), (-2, -1), (0, 1)).contiguous()
+
+
+def jacobi_smoother(A: StencilBlockEll) -> Callable:
+    """The block-Jacobi smoother: `_block_inverse` applied by ``block_jacobi``."""
+    Dinv = _block_inverse(A)
 
     def apply(R: torch.Tensor) -> torch.Tensor:
         return block_jacobi(Dinv, R.contiguous())
@@ -269,6 +279,8 @@ class _Aggregation2D(NamedTuple):
     my: int
     fy: int
     fx: int
+    shape: tuple          # of a coarse vector: (my, mx)
+    grid: Callable        # coarse vector -> its [my, mx] view (itself)
 
 
 def _aggregation2d(A: StencilBlockEll, macro_shape) -> Optional[_Aggregation2D]:
@@ -289,7 +301,7 @@ def _aggregation2d(A: StencilBlockEll, macro_shape) -> Optional[_Aggregation2D]:
     def broadcast(yc):
         return yc[None, :, None, :, None].expand(8, my, fy, mx, fx).reshape(8, my * fy, mx * fx)
 
-    return _Aggregation2D(aggsum, broadcast, mx, my, fy, fx)
+    return _Aggregation2D(aggsum, broadcast, mx, my, fy, fx, (my, mx), lambda yc: yc)
 
 
 class _Aggregation(NamedTuple):
@@ -299,6 +311,8 @@ class _Aggregation(NamedTuple):
     my: int
     fy: int
     fx: int
+    shape: tuple          # of a coarse vector: (n_agg,)
+    grid: Callable        # coarse vector -> its [my, mx] view
 
 
 def _aggregation(A: StencilBlockEll, macro_shape) -> Optional[_Aggregation]:
@@ -313,10 +327,13 @@ def _aggregation(A: StencilBlockEll, macro_shape) -> Optional[_Aggregation]:
     def aggsum(R):
         return agg.aggsum(R).t().reshape(-1)  # [my,mx] -> [mx,my] flat
 
-    def broadcast(yc):
-        return agg.broadcast(yc.reshape(mx, my).t())
+    def grid(yc):
+        return yc.view(mx, my).t()
 
-    return _Aggregation(aggsum, broadcast, mx, my, agg.fy, agg.fx)
+    def broadcast(yc):
+        return agg.broadcast(grid(yc))
+
+    return _Aggregation(aggsum, broadcast, mx, my, agg.fy, agg.fx, (mx * my,), grid)
 
 
 def _crossing_masks(f: int, d: int, n: int) -> dict:
@@ -925,7 +942,6 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
         if agg is None:
             raise ValueError(f"aggregation lattice {tuple(mid_shape or macro_shape)} does not "
                              f"tile the stencil lattice {A.lattice}")
-        smoother = smoother or jacobi_smoother(A)
         count("deflation.aggregates", agg.mx * agg.my)
         if mid_shape is not None:
             count("deflation.coarse.multilevel")
@@ -945,50 +961,29 @@ def stencil_deflation_preconditioner(A: StencilBlockEll, macro_shape,
 
         AZ = torch.stack([(A.planes[s] * wnbr[s][None, :]).sum(dim=1)
                           for s in range(4)])  # [4, nd, 8, KY, KX]
-        plan = A.plan
+        fine = fine_level(AZ, weight, A.plan, agg,
+                          Dinv=_block_inverse(A) if smoother is None else None)
+        return _deflation_apply(fine, coarse, smoother)
 
-        def wsum(R):
-            """Z_w^T R: weighted aggregate sums."""
-            return agg.aggsum(R * weight)
 
-        def wbcast(yc):
-            """Z_w yc in the full [nd, 8, KY, KX] layout."""
-            return agg.broadcast(yc)[None] * weight
+def _deflation_apply(fine: FineLevel, coarse: Callable,
+                     smoother: Optional[Callable] = None) -> Callable:
+    """M^-1 r = Z_w y1 + S - Z_w y2 with y1 = E^-1 Z_w^T r, S the smoothed
+    residual and y2 = E^-1 Z_w^T A S: the fine level's four passes
+    (``kernels/deflation_apply``) around two coarse solves.  Block Jacobi
+    (``smoother`` None) is fused into the residual pass; a caller's
+    smoother is applied to the residual it writes."""
 
-        def a_broadcast(yc):
-            """A (Z_w yc) via AZ planes + rolled broadcast."""
-            B0 = agg.broadcast(yc)  # [8, KY, KX]
-            out = AZ[0] * B0[None]
-            for s in range(3):
-                Bs = torch.stack([torch.roll(B0[ks], shifts=(-dy, -dx), dims=(0, 1))
-                                  for ks, dy, dx in (plan[k][s] for k in range(8))])
-                out = out + AZ[s + 1] * Bs[None]
-            return out
+    def apply(R):
+        count("deflation.applies")
+        R = R.contiguous()
+        yc = coarse(weighted_sums(fine, R))
+        s = residual(fine, R, yc)
+        if smoother is not None:
+            s = smoother(s)
+        return combine(fine, yc, s, coarse(zt_a(fine, s)))
 
-        def zt_a(Svec):
-            """Z_w^T A s via AZ planes: scatter each slot's pairing back to the
-            neighbour's lattice position with the inverse roll, then aggsum."""
-            total = (AZ[0] * Svec).sum(dim=0)  # [8, KY, KX]
-            for s in range(3):
-                Ps = (AZ[s + 1] * Svec).sum(dim=0)
-                out_k = [None] * 8
-                for k in range(8):
-                    ks, dy, dx = plan[k][s]
-                    contrib = torch.roll(Ps[k], shifts=(dy, dx), dims=(0, 1))
-                    out_k[ks] = contrib if out_k[ks] is None else out_k[ks] + contrib
-                # every slot's k -> k_src map is a bijection for the NVB subclasses
-                if any(o is None for o in out_k):
-                    raise ValueError("stencil plan slot map is not bijective")
-                total = total + torch.stack(out_k)
-            return agg.aggsum(total)
-
-        def apply(R):
-            count("deflation.applies")
-            yc = coarse(wsum(R))
-            s = smoother(R - a_broadcast(yc))
-            return wbcast(yc) + s - wbcast(coarse(zt_a(s)))
-
-        return apply
+    return apply
 
 
 # -- mixed-precision refined PCG ---------------------------------------------
