@@ -77,6 +77,7 @@ from .la.stencil import (
 )
 from .la.stencil_multigrid import stencil_multigrid_preconditioner
 from .la.stencil_assembly import (
+    assemble_scaled_by_subclass,
     assemble_structured_spe10,
     assembly_tensors,
     build_structured_assembly,
@@ -120,6 +121,7 @@ class SolverSettings(NamedTuple):
     newton_schulz: int   # polish passes of the dense coarse inverse
     mid_cheb: int        # Chebyshev degree of the middle-level inverse
     symmetric: bool      # apply the exactly symmetrized operator
+    operator64: bool     # assemble in float64: the refinement's operator
 
 
 def _solver_settings(bisections: int, lattice) -> SolverSettings:
@@ -127,7 +129,12 @@ def _solver_settings(bisections: int, lattice) -> SolverSettings:
     from 8 bisections on, a sweep exit tolerance that grows with size (the
     float32 true progress per sweep shrinks with size), and the symmetric
     operator once the lattice has >= 128000 cells per subclass (160 x 800,
-    8 bisections)."""
+    8 bisections).  From 10 bisections the operator is assembled in
+    float64, refined against, and applied by the PCG as its float32
+    rounding: there the float32 assembly's roundoff is of the order of the
+    scaled operator's smallest eigenvalues, and on ~1 field in 70 of a
+    log-normal permeability traffic it is indefinite and the refinement
+    diverges."""
     KY, KX = lattice
     inner_rtol = 7e-1 if bisections >= 10 else 3e-1 if bisections >= 8 else 1e-1
     return SolverSettings(
@@ -135,7 +142,7 @@ def _solver_settings(bisections: int, lattice) -> SolverSettings:
         inner_rtol=inner_rtol,
         outer_max=500 if inner_rtol >= 3e-1 else 120,
         unroll=2, newton_schulz=2, mid_cheb=2,
-        symmetric=KY * KX >= 128000)
+        symmetric=KY * KX >= 128000, operator64=bisections >= 10)
 
 
 def _select_mid_level(KY: int, KX: int, macro) -> Optional[object]:
@@ -185,7 +192,7 @@ class _BenchGeometry(NamedTuple):
     grid: object             # the ALU-bisected 100 x 20 grid
     binfo: object            # its all-Dirichlet boundary info
     order: object            # its structured cell order (lattice (KY, KX))
-    tensors: object          # AssemblyTensors on the device
+    tensors: object          # AssemblyTensors on the device, in the assembly's dtype
     to_soa: torch.Tensor     # flat original -> SoA [nd, 8, KY, KX] index map
     from_soa: torch.Tensor   # flat SoA -> original
     broadcast: Callable      # [MODEL1_NX, MODEL1_NZ] field -> [8, KY, KX] cell field
@@ -197,41 +204,61 @@ def _diffusion_factor():
                        name="diffusion_factor")
 
 
+def _channel_coefficient(splan, device, dtype=np.float32):
+    """The static diffusion factor at the plan's quadrature points, evaluated
+    on ``device`` and handed back as `precompute_coefficient`'s host arrays
+    in ``dtype``: the channel's boxes are disjoint, so each point sums one
+    nonzero term and the result is the host evaluation's bit for bit."""
+    lam = _diffusion_factor()
+    return precompute_coefficient(splan, lambda x: lam(x.to(device)).cpu(), dtype)
+
+
 @lru_cache(maxsize=1)
-def _bench_geometry(bisections: int, device) -> _BenchGeometry:
+def _bench_geometry(bisections: int, device, dtype: torch.dtype = torch.float32) -> _BenchGeometry:
     """The bench operator's host set-up on ``device``: grid, structured
-    order, assembly plan with the static channel coefficient, SoA maps, and
+    order, assembly plan with the static channel coefficient (the assembly
+    tensors in ``dtype``), SoA maps, and
     the broadcast of the permeability field onto the lattice, checked
     against the centroid binning.  The last one is kept, so a bench built
-    again at the same size shares it."""
-    grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
-    binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
-    order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
+    again at the same size shares it.  Each step is a ``bench.geometry.*``
+    phase of the record."""
+    with timed("bench.geometry.grid"):
+        grid = alu_cube_grid((0.0, 0.0), (5.0, 1.0), (100, 20), refinements=bisections)
+        binfo = make_boundary_info(grid, {"type": "stuff.grid.boundaryinfo.alldirichlet"})
+    with timed("bench.geometry.order"):
+        order = structured_cell_order(grid, (0.0, 0.0), (5.0, 1.0))
     KY, KX = order.lattice
-    splan = build_structured_assembly(grid, order, binfo)
-    # the channel geometry is static: evaluate it once on the host
-    tensors = assembly_tensors(splan, precompute_coefficient(splan, _diffusion_factor()), device)
-    to_soa, from_soa = geometric_soa_maps(order, splan)
+    with timed("bench.geometry.plan"):
+        splan = build_structured_assembly(grid, order, binfo)
+    # the channel geometry is static: evaluate it once
+    with timed("bench.geometry.coefficient", sync=device):
+        pre = _channel_coefficient(splan, device,
+                                   np.float64 if dtype == torch.float64 else np.float32)
+    with timed("bench.geometry.tensors", sync=device):
+        tensors = assembly_tensors(splan, pre, device, dtype)
+    with timed("bench.geometry.soa_maps", sync=device):
+        to_soa, from_soa = geometric_soa_maps(order, splan)
+        to_soa = torch.as_tensor(to_soa, dtype=torch.long, device=device)
+        from_soa = torch.as_tensor(from_soa, dtype=torch.long, device=device)
     # the macro grid tiles the lattice, so the cell-constant permeability in
     # SoA order is a pure broadcast cf[k, iy, ix] = field[ix // fx, iy // fy];
     # verify that layout against the centroid binning
     fy, fx = KY // MODEL1_NZ, KX // MODEL1_NX
-    ij_cell = np.clip(
-        (grid.cell_centroids / np.array([5.0, 1.0]) * np.array([MODEL1_NX, MODEL1_NZ]))
-        .astype(np.int64), 0, np.array([MODEL1_NX - 1, MODEL1_NZ - 1]))
-    ij_soa = ij_cell[np.asarray(order.inv)].reshape(8, KY, KX, 2)
-    iyg, ixg = np.meshgrid(np.arange(KY), np.arange(KX), indexing="ij")
-    if not ((ij_soa[..., 0] == (ixg // fx)[None]).all()
-            and (ij_soa[..., 1] == (iyg // fy)[None]).all()):
-        raise AssertionError("permeability broadcast does not match the centroid binning")
+    with timed("bench.geometry.check"):
+        ij_cell = np.clip(
+            (grid.cell_centroids / np.array([5.0, 1.0]) * np.array([MODEL1_NX, MODEL1_NZ]))
+            .astype(np.int64), 0, np.array([MODEL1_NX - 1, MODEL1_NZ - 1]))
+        ij_soa = ij_cell[np.asarray(order.inv)].reshape(8, KY, KX, 2)
+        iyg, ixg = np.meshgrid(np.arange(KY), np.arange(KX), indexing="ij")
+        if not ((ij_soa[..., 0] == (ixg // fx)[None]).all()
+                and (ij_soa[..., 1] == (iyg // fy)[None]).all()):
+            raise AssertionError("permeability broadcast does not match the centroid binning")
 
     def broadcast(field: torch.Tensor) -> torch.Tensor:
         cf2d = field.t()[:, None, :, None].expand(MODEL1_NZ, fy, MODEL1_NX, fx)
         return cf2d.reshape(KY, KX)[None].expand(8, KY, KX)
 
-    return _BenchGeometry(grid, binfo, order, tensors,
-                          torch.as_tensor(to_soa, dtype=torch.long, device=device),
-                          torch.as_tensor(from_soa, dtype=torch.long, device=device), broadcast)
+    return _BenchGeometry(grid, binfo, order, tensors, to_soa, from_soa, broadcast)
 
 
 def _block_assembly(geo: _BenchGeometry, device, dtype: torch.dtype) -> Callable:
@@ -306,7 +333,8 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
     settings = _solver_settings(bisections, (KY, KX))
     highest_precision()
     device = resolve_device(device)
-    geo = _bench_geometry(bisections, device)
+    geo = _bench_geometry(bisections, device,
+                          torch.float64 if settings.operator64 else torch.float32)
     order = geo.order
     if order.lattice != (KY, KX):
         raise AssertionError(f"structured lattice {order.lattice}, expected {(KY, KX)}")
@@ -333,6 +361,13 @@ def build_spe10_bench(bisections: int = 4, tol: float = 1e-6, device="cuda",
 
         def assemble(field: torch.Tensor):
             with span("assemble", device=True):
+                if settings.operator64:
+                    S, B, s = assemble_scaled_by_subclass(
+                        geo.tensors, geo.broadcast(field.to(torch.float64)),
+                        structured_rhs(geo.tensors, force))
+                    f32 = torch.float32
+                    return (StencilBlockEll(S.planes.to(f32), S.plan, spmv, planes64=S.planes),
+                            B.to(f32), s.to(f32))
                 S = assemble_structured_spe10(geo.tensors,
                                               geo.broadcast(field.to(torch.float32)))
                 S = StencilBlockEll(S.planes, S.plan, spmv)

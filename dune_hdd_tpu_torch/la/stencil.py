@@ -129,13 +129,19 @@ class StencilBlockEll:
     ``planes`` and applies each stored plane twice (forward, and transposed
     at the inverse shift).  The result is the exactly symmetrized operator
     (:func:`symmetric_planes` materializes it); it differs from the
-    assembled one within assembly roundoff."""
+    assembled one within assembly roundoff.
 
-    def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv):
+    ``planes64``: where the operator was assembled in float64 and ``planes``
+    are its float32 rounding, the float64 planes themselves, which
+    :meth:`astype` returns for float64 (else the planes are cast)."""
+
+    def __init__(self, planes: torch.Tensor, plan, spmv: Callable = plane_spmv,
+                 planes64: Optional[torch.Tensor] = None):
         self.planes = planes
         self.plan = tuple(tuple(tuple(int(v) for v in e) for e in row)
                           for row in plan)
         self.spmv = spmv
+        self.planes64 = planes64
 
     @classmethod
     def from_block_ell(cls, A: BlockEllMatrix, order) -> "StencilBlockEll":
@@ -173,11 +179,13 @@ class StencilBlockEll:
         return StencilBlockEll(planes, self.plan, self.spmv)
 
     def astype(self, dtype: torch.dtype) -> "StencilBlockEll":
+        if dtype == torch.float64 and self.planes64 is not None:
+            return self.with_planes(self.planes64)
         return self.with_planes(self.planes.to(dtype))
 
     def symmetrized(self) -> "StencilBlockEll":
         """Same planes, half-storage symmetric matvec (see class docstring)."""
-        return StencilBlockEll(self.planes, self.plan, half_storage(self.spmv))
+        return StencilBlockEll(self.planes, self.plan, half_storage(self.spmv), self.planes64)
 
     def neighbor_fields(self, X: torch.Tensor):
         """[4][nd, 8, KY, KX] neighbour fields (self + 3 slots) of X."""

@@ -14,7 +14,9 @@ Two halves:
   maps to the flat cell-major layout;
 * device (torch, per call): ``assembly_tensors`` moves the plan's constants
   to the device once, then ``assemble_structured_spe10``,
-  ``structured_rhs`` and ``scale_planes`` run as tensor ops there.
+  ``structured_rhs`` and ``scale_planes`` run as tensor ops there
+  (``assemble_scaled_by_subclass``: the first and the last in a third of
+  the transient memory, for the float64 operator of the largest lattices).
 
 The diffusion tensor is a cell-constant scalar field (the SPE10
 permeability); the scalar diffusion factor may vary within cells.
@@ -35,7 +37,8 @@ from .stencil import StencilBlockEll, stencil_plan
 __all__ = ["StructuredAssemblyPlan", "PrecomputedCoefficient", "AssemblyTensors",
            "build_structured_assembly", "geometric_soa_maps",
            "precompute_coefficient", "assembly_tensors",
-           "assemble_structured_spe10", "structured_rhs", "scale_planes"]
+           "assemble_structured_spe10", "assemble_scaled_by_subclass", "structured_rhs",
+           "scale_planes"]
 
 _SIDE_EPS32 = 1e-3  # side-evaluation shift that survives f32 rounding
 _ND = 3             # P1 triangle: 3 DoF per cell
@@ -327,6 +330,47 @@ def assembly_tensors(plan: StructuredAssemblyPlan, pre: PrecomputedCoefficient,
     )
 
 
+def _volume_blocks(T: AssemblyTensors, cell_field: torch.Tensor) -> torch.Tensor:
+    """The volume term's self blocks [nd, nd, 8, KY, KX]."""
+    return torch.einsum("qkyx,kqij->ijkyx", T.a_vol * cell_field[None], T.vol_G)
+
+
+def _face_blocks(T: AssemblyTensors, cell_field: torch.Tensor, fams: slice):
+    """(self, neighbour) blocks [F', nd, nd, KY, KX] of the face families
+    ``fams``: the interior SWIPDG terms and the Dirichlet terms."""
+    a_m = T.lam_m[fams] * cell_field[T.own_k[fams]][:, None]
+    nb = torch.stack([torch.roll(cell_field[ks], shifts=(-dy, -dx), dims=(0, 1))
+                      for ks, dy, dx in T.neighbours[fams]])
+    a_p = T.lam_p[fams] * nb[:, None]
+    # side quantities (kappa = a*I): delta = a, flux_i = a * nflux_i
+    denom = a_m + a_p
+    zero = denom == 0
+    safe = torch.where(zero, torch.ones_like(denom), denom)
+    w_m = torch.where(zero, torch.full_like(denom, 0.5), a_p / safe)
+    gamma = torch.where(zero, torch.zeros_like(denom), a_m * a_p / safe)
+    inv_hb = T.inv_hb[fams][:, None, None, None]
+    qw = T.qw[fams][..., None, None]
+    pen_q = qw * (T.sigma_i * gamma * inv_hb)
+    wam_q = qw * (w_m * a_m)
+    wap_q = qw * ((1.0 - w_m) * a_p)
+    penb_q = qw * (T.sigma_b * a_m * inv_hb)
+    am_q = qw * a_m
+
+    def fam(weights, consts):
+        return torch.einsum("fqyx,fqij->fijyx", weights, consts[fams])
+
+    # b[m,m] = sum_q qw ( pen v_m v_m - v_m wam nfm - wam nfm v_m )
+    # b[m,p] = sum_q qw ( -pen v_m v_p - v_m wap nfp + wam nfm v_p )
+    # (jump sign: [u] = u_m - u_p with n = n_out of m)
+    b_mm_int = fam(pen_q, T.pen_mm) - fam(wam_q, T.flux_mm)
+    b_mp_int = -fam(pen_q, T.pen_mp) - fam(wap_q, T.vn_p) + fam(wam_q, T.nv_p)
+    b_mm_dir = fam(penb_q, T.pen_mm) - fam(am_q, T.flux_mm)
+
+    interior = T.interior[fams][:, None, None]
+    return (interior * b_mm_int + T.dirichlet[fams][:, None, None] * b_mm_dir,
+            interior * b_mp_int)
+
+
 def assemble_structured_spe10(T: AssemblyTensors,
                               cell_field: torch.Tensor) -> StencilBlockEll:
     """Assemble the SWIPDG operator into planes [4, nd, nd, 8, KY, KX].
@@ -337,43 +381,8 @@ def assemble_structured_spe10(T: AssemblyTensors,
     KY, KX = T.lattice
     nd = _ND
     F = T.lam_m.shape[0]
-
-    # --- volume ---
-    a_vol = T.a_vol * cell_field[None]
-    w0 = torch.einsum("qkyx,kqij->ijkyx", a_vol, T.vol_G)
-
-    # --- faces ---
-    a_m = T.lam_m * cell_field[T.own_k][:, None]
-    nb = torch.stack([torch.roll(cell_field[ks], shifts=(-dy, -dx), dims=(0, 1))
-                      for ks, dy, dx in T.neighbours])
-    a_p = T.lam_p * nb[:, None]
-    # side quantities (kappa = a*I): delta = a, flux_i = a * nflux_i
-    denom = a_m + a_p
-    zero = denom == 0
-    safe = torch.where(zero, torch.ones_like(denom), denom)
-    w_m = torch.where(zero, torch.full_like(denom, 0.5), a_p / safe)
-    gamma = torch.where(zero, torch.zeros_like(denom), a_m * a_p / safe)
-    inv_hb = T.inv_hb[:, None, None, None]
-    qw = T.qw[..., None, None]
-    pen_q = qw * (T.sigma_i * gamma * inv_hb)
-    wam_q = qw * (w_m * a_m)
-    wap_q = qw * ((1.0 - w_m) * a_p)
-    penb_q = qw * (T.sigma_b * a_m * inv_hb)
-    am_q = qw * a_m
-
-    def fam(weights, consts):
-        return torch.einsum("fqyx,fqij->fijyx", weights, consts)
-
-    # b[m,m] = sum_q qw ( pen v_m v_m - v_m wam nfm - wam nfm v_m )
-    # b[m,p] = sum_q qw ( -pen v_m v_p - v_m wap nfp + wam nfm v_p )
-    # (jump sign: [u] = u_m - u_p with n = n_out of m)
-    b_mm_int = fam(pen_q, T.pen_mm) - fam(wam_q, T.flux_mm)
-    b_mp_int = -fam(pen_q, T.pen_mp) - fam(wap_q, T.vn_p) + fam(wam_q, T.nv_p)
-    b_mm_dir = fam(penb_q, T.pen_mm) - fam(am_q, T.flux_mm)
-
-    interior = T.interior[:, None, None]
-    self_add = interior * b_mm_int + T.dirichlet[:, None, None] * b_mm_dir
-    nb_set = interior * b_mp_int
+    w0 = _volume_blocks(T, cell_field)
+    self_add, nb_set = _face_blocks(T, cell_field, slice(None))
     # family f = k*3 + s: self contribution -> W0[:, :, k];
     # neighbour contribution -> plane s+1 at subclass k
     self_k = self_add.reshape(8, 3, nd, nd, KY, KX).sum(dim=1)
@@ -381,6 +390,31 @@ def assemble_structured_spe10(T: AssemblyTensors,
     nb_planes = torch.movedim(nb_set.reshape(8, F // 8, nd, nd, KY, KX), (0, 1), (3, 0))
     planes = torch.cat([w0[None], nb_planes], dim=0)
     return StencilBlockEll(planes, T.plan)
+
+
+def assemble_scaled_by_subclass(T: AssemblyTensors, cell_field: torch.Tensor,
+                                B: torch.Tensor):
+    """`assemble_structured_spe10` then `scale_planes` with a third of their
+    transient memory: the face families one subclass (3 families) at a
+    time, written into the planes, which are then scaled in place.  The
+    same terms, not bitwise the batched form (the self blocks are summed in
+    another order); for the float64 operator of the largest lattices."""
+    nd = _ND
+    planes = torch.empty((4, nd, nd) + tuple(cell_field.shape), dtype=cell_field.dtype,
+                         device=cell_field.device)
+    planes[0] = _volume_blocks(T, cell_field)
+    for k in range(8):
+        self_add, nb_set = _face_blocks(T, cell_field, slice(3 * k, 3 * k + 3))
+        planes[0, :, :, k] += self_add.sum(dim=0)
+        planes[1:, :, :, k] = nb_set
+        del self_add, nb_set
+    S = StencilBlockEll(planes, T.plan)
+    diag = torch.stack([planes[0, i, i] for i in range(nd)])
+    s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-30))
+    fields = S.neighbor_fields(s)
+    for sl in range(4):
+        planes[sl].mul_(s[:, None]).mul_(fields[sl][None, :])
+    return S, B * s, s
 
 
 def structured_rhs(T: AssemblyTensors, force_fn) -> torch.Tensor:

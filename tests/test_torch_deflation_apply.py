@@ -256,10 +256,10 @@ def _stage_sums(values, geometry, my, mx, fy, fx, x_major):
     return out if x_major else out.reshape(my, mx)
 
 
-# (KY, KX, fy, fx): the OS2014 and b8 shapes, fx = 1, an odd fx, a factor of
-# 32 that leaves lanes over, fy = 1
-GEOMETRIES = [(256, 256, 64, 64), (160, 800, 2, 2), (8, 12, 2, 1), (6, 12, 3, 3),
-              (8, 96, 4, 48), (4, 64, 1, 32), (20, 100, 4, 25)]
+# (KY, KX, fy, fx): the OS2014, b8 and b10 shapes, fx = 1, an odd fx, a factor
+# of 32 that leaves lanes over, fy = 1
+GEOMETRIES = [(256, 256, 64, 64), (160, 800, 2, 2), (320, 1600, 4, 4), (8, 12, 2, 1),
+              (6, 12, 3, 3), (8, 96, 4, 48), (4, 64, 1, 32), (20, 100, 4, 25)]
 
 
 @pytest.mark.parametrize("threads", [64, 4096, mod.STAGE_ONE_THREADS])
@@ -281,9 +281,11 @@ def test_aggregate_sums_geometry_counts_every_site_once(shape, threads):
 
 def test_aggregate_sums_geometry_at_the_cells_shapes():
     """OS2014: 16 aggregates of 64 x 64 sites, a warp per column run and 32
-    threads an aggregate; b8: 32,000 aggregates of 2 x 2, one thread each."""
+    threads an aggregate; b8: 32,000 aggregates of 2 x 2, one thread each;
+    b10: 32,000 aggregates of 4 x 4, 32 pairs in two chunks, 4 lanes a row."""
     assert mod.sum_geometry(256, 64, 64, 4) == (128, 4, 32, 32)
     assert mod.sum_geometry(800, 2, 2, 80) == (3, 6, 2, 1)
+    assert mod.sum_geometry(1600, 4, 4, 80) == (2, 16, 4, 1)
 
 
 @pytest.mark.parametrize("nd", [3, 6])
@@ -477,10 +479,11 @@ def _sum_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-# (nd, lattice, macro, x-major, dtype): the OS2014 and b8 shapes, then the
-# other nd, fx = 1 and the [my, mx] layout at small lattices
+# (nd, lattice, macro, x-major, dtype): the OS2014, b8 and b10 shapes, then
+# the other nd, fx = 1 and the [my, mx] layout at small lattices
 CARD_CASES = [(3, (256, 256), (4, 4), True, torch.float64),
               (3, (160, 800), (400, 80), False, torch.float32),
+              (3, (320, 1600), (400, 80), False, torch.float32),
               (6, (32, 48), (4, 4), True, torch.float64), (10, (16, 24), (8, 4), False,
                                                            torch.float32),
               (3, (12, 44), (44, 3), True, torch.float64), (6, (8, 12), (3, 2), False,
